@@ -1,0 +1,232 @@
+"""Whole-image and tiled prediction (counterpart of segtpu/inference.py;
+reference inria_submit.py:217-257).
+
+The image is uploaded once, as uint8 when the test transform is the affine
+``NormalizeImage`` (4x fewer bytes than float32); the cast and the affine
+run on the device. Tiles are gathered on the device in chunks of
+``batch_size // 8`` tiles, each expanded x8 by D4 TTA, run through the
+model, inverted and averaged; the pyramid-weighted merge and the threshold
+run on the device too, and only the mask comes back.
+
+``predict_fn(x: (N, C, H, W)) -> (N, 1, H, W)`` sigmoid probabilities on
+the device of ``x`` — typically :func:`segtpu_torch.train.state.make_predict_step`.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Callable, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from segtpu_torch.augment import (
+    host as aug,
+    pad_to_multiple,
+    tta_d4_aug_batch,
+    tta_d4_deaug_batch,
+    unpad,
+)
+from segtpu_torch.device import DeviceLike, resolve_device
+from segtpu_torch.tiles import ImageSlicer
+
+
+def _device_affine(test_transform):
+    """(scale, mean, std) when ``test_transform`` is an affine image-only
+    normalize chain (the submit CLI's ``Normalize(INRIA stats)``), or the
+    identity for None/empty; None when the chain has other parts, which then
+    run on the host."""
+    if test_transform is None:
+        chain = []
+    elif isinstance(test_transform, aug.Sequential):
+        chain = list(test_transform.transforms)
+    else:
+        chain = [test_transform]
+
+    scale, mean, std = np.float32(1.0), np.float32(0.0), np.float32(1.0)
+    seen = False
+    for part in chain:
+        if isinstance(part, aug.MaskOnly):
+            continue  # no mask at inference time
+        inner = part.trans if isinstance(part, aug.ImageOnly) else part
+        if isinstance(inner, aug.NormalizeImage) and not seen:
+            scale = np.float32(inner.scale)
+            mean = np.asarray(inner.mean, np.float32)
+            std = np.asarray(inner.std, np.float32)
+            seen = True
+            continue
+        return None
+    return scale, mean, std
+
+
+def _host_image(image: np.ndarray, test_transform):
+    """(HWC image in its upload dtype, affine or None): uint8 stays uint8 when
+    the affine runs on the device, anything else goes up as float32."""
+    affine = _device_affine(test_transform)
+    if affine is None and test_transform is not None:
+        image, _ = test_transform(image, None)
+    image = np.asarray(image)
+    if affine is None or image.dtype != np.uint8:
+        image = image.astype(np.float32, copy=False)
+    if image.ndim == 2:
+        image = image[..., None]
+    return image, affine
+
+
+def _upload(image: np.ndarray, affine, device: torch.device) -> torch.Tensor:
+    """HWC host array -> (C, H, W) float32 on ``device``, with
+    ``(x * scale - mean) / std`` applied there in the host transform's op
+    order."""
+    x = torch.from_numpy(np.ascontiguousarray(image)).to(device).permute(2, 0, 1).float()
+    if affine is None:
+        return x.contiguous()
+    scale, mean, std = affine
+    mean = torch.as_tensor(mean, dtype=torch.float32, device=device).view(-1, 1, 1)
+    std = torch.as_tensor(std, dtype=torch.float32, device=device).view(-1, 1, 1)
+    return (x * float(scale) - mean) / std
+
+
+def predict_full(image: np.ndarray, predict_fn: Callable, test_transform=None,
+                 pad_size: int = 32, tta: bool = True, device: DeviceLike = None) -> np.ndarray:
+    """Whole-image prediction: pad to /32, D4 TTA, average
+    (reference predict_full, inria_submit.py:217-234). Returns HW float32."""
+    dev = resolve_device(device)
+    image, affine = _host_image(image, test_transform)
+    padded, pads = pad_to_multiple(image, pad_size)
+    if tta and padded.shape[0] != padded.shape[1]:
+        # batched D4 TTA needs a square canvas (rot90 views share one shape);
+        # replicate-pad the short side up and fold the extra into `pads`
+        side = max(padded.shape[0], padded.shape[1])
+        eh, ew = side - padded.shape[0], side - padded.shape[1]
+        padded = np.pad(padded, [(0, eh), (0, ew), (0, 0)], mode="edge")
+        pads = (pads[0], pads[1] + eh, pads[2], pads[3] + ew)
+    x = _upload(padded, affine, dev)[None]
+    if tta:
+        x = tta_d4_aug_batch(x)
+    y = predict_fn(x)
+    if tta:
+        y = tta_d4_deaug_batch(y)
+    return unpad(y[0, 0].float().cpu().numpy(), pads)
+
+
+class _Prepared:
+    """Host half of one tiled prediction: the padded image, the slicer and
+    the crop origins of every chunk (the tail repeats crop 0; its result is
+    dropped before the merge)."""
+
+    def __init__(self, image: np.ndarray, test_transform, patch_size: int,
+                 batch_size: int, tta: bool, weight: str):
+        image, self.affine = _host_image(image, test_transform)
+        self.slicer = ImageSlicer(image.shape, patch_size, patch_size // 2, weight=weight)
+        self.padded = self.slicer.pad(image)
+        self.n_tiles = len(self.slicer.crops)
+        self.chunk = max(1, batch_size // 8) if tta else batch_size
+        self.n_chunks = -(-self.n_tiles // self.chunk)
+        pad = self.n_chunks * self.chunk - self.n_tiles
+        crops = self.slicer.crops + [self.slicer.crops[0]] * pad
+        self.ys = np.asarray([c[1] for c in crops], np.int64)
+        self.xs = np.asarray([c[0] for c in crops], np.int64)
+
+
+def _gather_tiles(image: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, patch: int) -> torch.Tensor:
+    """(C, H, W) image, crop origins [N] -> (N, C, patch, patch) tiles, one
+    indexing gather on the image's device."""
+    r = torch.arange(patch, device=image.device)
+    rows = (ys[:, None] + r)[:, :, None]  # (N, p, 1)
+    cols = (xs[:, None] + r)[:, None, :]  # (N, 1, p)
+    return image[:, rows, cols].transpose(0, 1)
+
+
+def _dispatch(prep: _Prepared, predict_fn: Callable, tta: bool, threshold: Optional[float],
+              device: torch.device) -> torch.Tensor:
+    """Device half: upload, chunked sweep, merge and threshold. Returns the
+    (H, W) mask on the device without waiting for it."""
+    image = _upload(prep.padded, prep.affine, device)
+    ys = torch.from_numpy(prep.ys).to(device)
+    xs = torch.from_numpy(prep.xs).to(device)
+    patch = prep.slicer.tile_size
+    preds = []
+    for i in range(prep.n_chunks):
+        sl = slice(i * prep.chunk, (i + 1) * prep.chunk)
+        x = _gather_tiles(image, ys[sl], xs[sl], patch)
+        if tta:
+            x = tta_d4_aug_batch(x)
+        y = predict_fn(x)
+        preds.append(tta_d4_deaug_batch(y) if tta else y)
+    merged = prep.slicer.merge_device(torch.cat(preds)[:prep.n_tiles])[0]
+    if threshold is not None:
+        return (merged > threshold).to(torch.uint8) * 255
+    return merged
+
+
+def predict_tiled(image: np.ndarray, predict_fn: Callable, test_transform=None,
+                  patch_size: int = 224, batch_size: int = 8, tta: bool = True,
+                  weight: str = "pyramid", threshold: Optional[float] = None,
+                  device: DeviceLike = None) -> np.ndarray:
+    """Sliding-window tiled prediction with weighted fusion and D4 TTA
+    (reference predict_tiled, inria_submit.py:237-257: step = patch/2,
+    pyramid weights). Returns the HW float32 probabilities, or the uint8
+    0/255 mask when ``threshold`` is given."""
+    dev = resolve_device(device)
+    prep = _Prepared(image, test_transform, patch_size, batch_size, tta, weight)
+    return _dispatch(prep, predict_fn, tta, threshold, dev).cpu().numpy()
+
+
+def predict_tiled_stream(items: Iterable[Tuple[object, Callable[[], np.ndarray]]],
+                         predict_fn: Callable, test_transform=None,
+                         patch_size: int = 224, batch_size: int = 8, tta: bool = True,
+                         weight: str = "pyramid", threshold: Optional[float] = None,
+                         depth: int = 1, device: DeviceLike = None):
+    """Pipelined :func:`predict_tiled` over many images: yields ``(key, mask)``
+    in input order.
+
+    ``items`` holds ``(key, load_fn)`` pairs, ``load_fn() -> HWC ndarray``. A
+    producer thread loads and prepares image i+1 on the host (NumPy only)
+    while this thread uploads and launches the sweep of image i; up to
+    ``depth`` masks stay on the device before the oldest is fetched.
+    ``depth=0`` is the serial path."""
+    dev = resolve_device(device)
+    items = list(items)
+    if not items:
+        return
+
+    prepped: queue.Queue = queue.Queue(maxsize=max(1, depth + 1))
+    stop = threading.Event()
+
+    def put(entry) -> bool:
+        while not stop.is_set():
+            try:
+                prepped.put(entry, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for key, load_fn in items:
+                prep = _Prepared(load_fn(), test_transform, patch_size, batch_size,
+                                 tta, weight)
+                if not put((key, prep, None)):
+                    return
+        except BaseException as e:  # handed to the consumer, which raises it
+            put((None, None, e))
+
+    worker = threading.Thread(target=producer, daemon=True)
+    worker.start()
+    inflight = []
+    try:
+        for _ in range(len(items)):
+            key, prep, error = prepped.get()
+            if error is not None:
+                raise error
+            inflight.append((key, _dispatch(prep, predict_fn, tta, threshold, dev)))
+            if len(inflight) > depth:
+                k, m = inflight.pop(0)
+                yield k, m.cpu().numpy()
+        for k, m in inflight:
+            yield k, m.cpu().numpy()
+    finally:
+        stop.set()
+        worker.join(timeout=10.0)

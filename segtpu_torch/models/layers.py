@@ -1,0 +1,123 @@
+"""Layers of the inference slice (counterparts of segtpu/models/layers.py).
+
+NCHW modules whose attribute and buffer names are the reference's
+state_dict keys (``weight``, ``bias``, ``running_mean``, ``running_var``), so
+a reference ``.pth`` or :func:`segtpu_torch.compat.jax_params.state_dict_from_jax`
+loads with ``load_state_dict``. Inference only: the training-mode forwards of
+the normalisations raise until the training slice (kernels B1/B3) lands.
+Random init takes an explicit ``torch.Generator`` (``reset_parameters``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from segtpu_torch.ops import abn as abn_ops
+
+_TRAINING_SLICE = ("training-mode {} arrives with the training slice of the port "
+                   "(batch statistics: kernel B1; ABN backward: kernel B3)")
+
+
+def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator]):
+    with torch.no_grad():
+        t.uniform_(-bound, bound, generator=generator)
+
+
+class BatchNormTorch(nn.Module):
+    """BatchNorm2d with torch running-stat semantics, eval mode (segtpu
+    ``BatchNormTorch(use_running_average=True)``)."""
+
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__()
+        self.features, self.eps, self.momentum = features, eps, momentum
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(_TRAINING_SLICE.format("BatchNormTorch"))
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                            self.bias, False, 0.0, self.eps)
+
+
+class InPlaceABN(nn.Module):
+    """Fused activated BN, eval mode (segtpu ``InPlaceABN``; reference
+    lib/modules/abn/bn.py:47-103): one pass of the B2 kernel on CUDA."""
+
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 activation: str = abn_ops.ACT_LEAKY_RELU, slope: float = 0.01):
+        super().__init__()
+        self.features, self.eps, self.momentum = features, eps, momentum
+        self.activation, self.slope = activation, slope
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(_TRAINING_SLICE.format("InPlaceABN"))
+        return abn_ops.fused_abn(
+            x, self.weight, self.bias, mean=self.running_mean, var=self.running_var,
+            training=False, eps=self.eps, activation=self.activation, slope=self.slope)
+
+
+class Conv(nn.Conv2d):
+    """``nn.Conv2d`` with segtpu ``Conv``'s defaults (3x3, no padding) and
+    torch's default init, U(+-1/sqrt(fan_in)) for weight and bias."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 groups: int = 1, bias: bool = True):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=padding, dilation=dilation, groups=groups, bias=bias)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        fan_in = self.weight.shape[1] * self.weight.shape[2] * self.weight.shape[3]
+        bound = 1.0 / math.sqrt(fan_in)
+        _uniform_(self.weight, bound, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, bound, generator)
+
+
+class ConvTranspose2dTorch(nn.ConvTranspose2d):
+    """torch ``nn.ConvTranspose2d(k, stride, padding, output_padding)``: the
+    full transposed conv cropped by ``padding`` / ``padding - output_padding``,
+    the crop segtpu's ``ConvTranspose2dTorch`` applies by hand. Weight layout
+    (in, out, kh, kw)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int, padding: int = 0, output_padding: int = 0,
+                 bias: bool = True):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=padding, output_padding=output_padding, bias=bias)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        # torch's fan_in for a transposed conv weight (in, out, kh, kw)
+        fan_in = self.weight.shape[1] * self.weight.shape[2] * self.weight.shape[3]
+        bound = 1.0 / math.sqrt(fan_in)
+        _uniform_(self.weight, bound, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, bound, generator)
+
+
+def reset_parameters(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """Re-draw every conv of ``module`` from ``generator``, in module order;
+    normalisation layers go back to weight 1, bias 0, mean 0, var 1."""
+    for m in module.modules():
+        if isinstance(m, (Conv, ConvTranspose2dTorch)):
+            m.reset_parameters(generator)
+        elif isinstance(m, (BatchNormTorch, InPlaceABN)):
+            with torch.no_grad():
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)

@@ -1,0 +1,85 @@
+"""LinkNet34 (counterpart of segtpu/models/linknet.py; reference
+lib/models/linknet.py): ResNet-34 encoder, 1x1 -> deconv(k4, s2) -> 1x1
+decoder blocks with InPlaceABN, additive skips, deconv + LeakyReLU head.
+
+Attribute names are the reference's state_dict keys: ``firstconv``,
+``firstbn``, ``encoder1..4``, ``decoder{i}.conv1/abn1/deconv2/abn2/conv3/abn3``,
+``finaldeconv1``, ``finalconv2``, ``finalconv3``. Inference only; the twelve
+InPlaceABN layers of the decoder run the B2 kernel on CUDA.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from segtpu_torch.models.encoders.resnet import resnet34
+from segtpu_torch.models.layers import Conv, ConvTranspose2dTorch, InPlaceABN
+
+
+class DecoderBlockLinkNet(nn.Module):
+    """conv1x1 to in/4 -> deconv k4 s2 p1 -> conv1x1 to n_filters, each
+    followed by InPlaceABN (reference linknet.py:5-30)."""
+
+    def __init__(self, in_channels: int, n_filters: int):
+        super().__init__()
+        mid = in_channels // 4
+        self.conv1 = Conv(in_channels, mid, 1)
+        self.abn1 = InPlaceABN(mid)
+        self.deconv2 = ConvTranspose2dTorch(mid, mid, 4, 2, padding=1)
+        self.abn2 = InPlaceABN(mid)
+        self.conv3 = Conv(mid, n_filters, 1)
+        self.abn3 = InPlaceABN(n_filters)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.abn1(self.conv1(x))
+        y = self.abn2(self.deconv2(y))
+        return self.abn3(self.conv3(y))
+
+
+class LinkNet34(nn.Module):
+    """reference lib/models/linknet.py:33-90; logits in fp32."""
+
+    def __init__(self, num_classes: int = 1, num_channels: int = 3,
+                 dilated: bool = False, s2d: bool = False):
+        super().__init__()
+        if s2d:
+            raise NotImplementedError("LinkNet34 s2d execution is not yet ported")
+        filters = (64, 128, 256, 512)
+        enc = resnet34(dilated=dilated, num_channels=num_channels)
+        self.firstconv = enc.conv1
+        self.firstbn = enc.bn1
+        self.firstmaxpool = enc.maxpool
+        self.encoder1 = enc.layer1
+        self.encoder2 = enc.layer2
+        self.encoder3 = enc.layer3
+        self.encoder4 = enc.layer4
+
+        self.decoder4 = DecoderBlockLinkNet(filters[3], filters[2])
+        self.decoder3 = DecoderBlockLinkNet(filters[2], filters[1])
+        self.decoder2 = DecoderBlockLinkNet(filters[1], filters[0])
+        self.decoder1 = DecoderBlockLinkNet(filters[0], filters[0])
+
+        self.finaldrop1 = nn.Dropout2d(0.5)
+        self.finaldeconv1 = ConvTranspose2dTorch(filters[0], 32, 3, 2)
+        self.finalconv2 = Conv(32, 32, 3)
+        self.finalconv3 = Conv(32, num_classes, 2, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.firstbn(self.firstconv(x)), inplace=True)
+        e1 = self.encoder1(self.firstmaxpool(x))
+        e2 = self.encoder2(e1)
+        e3 = self.encoder3(e2)
+        e4 = self.encoder4(e3)
+
+        # additive skips (reference linknet.py:77-79)
+        d4 = self.decoder4(e4) + e3
+        d3 = self.decoder3(d4) + e2
+        d2 = self.decoder2(d3) + e1
+        d1 = self.decoder1(d2)
+
+        f = self.finaldeconv1(self.finaldrop1(d1))
+        f = F.leaky_relu(f, 0.01)
+        f = F.leaky_relu(self.finalconv2(f), 0.01)
+        return self.finalconv3(f).float()

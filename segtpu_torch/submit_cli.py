@@ -1,0 +1,116 @@
+"""Tiled-inference / submission CLI of the port (counterpart of
+segtpu/submit_cli.py; reference inria_submit.py:260-308).
+
+Loads a reference-format ``.pth`` checkpoint, runs full or tiled prediction
+with D4 TTA over every image in ``<data-dir>/images``, thresholds at 0.5 and
+writes ``.tif`` masks to ``<submits-dir>/<experiment>/``:
+
+    python -m segtpu_torch.submit_cli -m linknet34 -c linknet34_checkpoint.pth \\
+        -p 512 -b 64 -dd data/inria --bf16
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+from segtpu_torch.augment import host as aug
+from segtpu_torch.data.inria import INRIA_MEAN, INRIA_STD
+from segtpu_torch.device import resolve_device
+from segtpu_torch.inference import predict_full, predict_tiled_stream
+from segtpu_torch.models import get_model
+from segtpu_torch.train.checkpoint import load_snapshot
+from segtpu_torch.train.state import make_predict_step
+from segtpu_torch.utils import auto_file, find_in_dir, read_rgb
+
+
+def build_arg_parser():
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-g", "--grayscale", action="store_true",
+                        help="Whether to use grayscale image instead of RGB")
+    parser.add_argument("-m", "--model", required=True, type=str,
+                        help="Name of the model")
+    parser.add_argument("-c", "--checkpoint", required=True, type=str,
+                        help="Reference-format .pth checkpoint of the model")
+    parser.add_argument("-p", "--patch-size", type=int, default=224)
+    parser.add_argument("-b", "--batch-size", type=int, default=1,
+                        help="Batch size during inference, in model passes: "
+                             "with TTA each chunk holds batch/8 tiles")
+    parser.add_argument("-dd", "--data-dir", type=str, default="data",
+                        help="Root directory where datasets are located.")
+    parser.add_argument("-x", "--experiment", type=str,
+                        help="Name of the experiment")
+    parser.add_argument("-f", "--full", action="store_true")
+    parser.add_argument("--no-tta", action="store_true")
+    parser.add_argument("--submits-dir", type=str, default="submits")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 model compute for inference")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device (default: cuda; pass cpu to run "
+                             "on the CPU)")
+    return parser
+
+
+def _write_tif(path: str, mask: np.ndarray) -> None:
+    import cv2
+
+    if not cv2.imwrite(path, mask):
+        raise IOError(f"cannot write {path}")
+
+
+def main(argv=None):
+    args = build_arg_parser().parse_args(argv)
+    device = resolve_device(args.device)
+
+    if args.experiment is None:
+        args.experiment = "inria_%s_%d_%s" % (
+            args.model, args.patch_size, "gray" if args.grayscale else "rgb"
+        )
+    experiment_dir = os.path.join(args.submits_dir, args.experiment)
+    os.makedirs(experiment_dir, exist_ok=True)
+
+    num_channels = 1 if args.grayscale else 3
+    model = get_model(args.model, patch_size=args.patch_size,
+                      num_channels=num_channels, device=device)
+    state_dict, meta = load_snapshot(auto_file(args.checkpoint))
+    model.load_state_dict(state_dict)
+    print("Using torch checkpoint from epoch", meta.get("epoch"), meta.get("loss"))
+
+    test_transform = aug.Sequential([
+        aug.ImageOnly(aug.NormalizeImage(mean=INRIA_MEAN, std=INRIA_STD)),
+    ])
+    predict_fn = make_predict_step(model, bf16=args.bf16)
+
+    def base(fname):
+        return os.path.splitext(os.path.basename(fname))[0]
+
+    images = sorted(find_in_dir(os.path.join(args.data_dir, "images")))
+    if args.full:
+        for fname in images:
+            mask = predict_full(read_rgb(fname), predict_fn, test_transform,
+                                tta=not args.no_tta, device=device)
+            mask = ((mask > 0.5) * 255).astype(np.uint8)
+            _write_tif(os.path.join(experiment_dir, base(fname) + ".tif"), mask)
+        return
+
+    # read/decode/pad of image i+1 and the tif write of image i-1 overlap the
+    # device sweep of image i
+    items = [(base(f), (lambda f=f: read_rgb(f))) for f in images]
+    with ThreadPoolExecutor(max_workers=2) as writer:
+        writes = []
+        stream = predict_tiled_stream(
+            items, predict_fn, test_transform, args.patch_size, args.batch_size,
+            tta=not args.no_tta, threshold=0.5, device=device)
+        for i, (basename, mask) in enumerate(stream):
+            writes.append(writer.submit(
+                _write_tif, os.path.join(experiment_dir, basename + ".tif"), mask))
+            print(f"{i + 1}/{len(images)} {basename}", flush=True)
+        for w in writes:
+            w.result()  # surface IO errors
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,130 @@
+"""segtpu_torch's LinkNet34 against segtpu's, with the same weights carried
+across by ``state_dict_from_jax``; the port's registry, device rule and
+checkpoint format."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from segtpu.compat.torch_import import export_state_dict
+
+from segtpu_torch.compat.jax_params import state_dict_from_jax
+from segtpu_torch.models import get_model
+from segtpu_torch.train.checkpoint import load_snapshot, save_snapshot
+
+from torch_port_util import jax_linknet34, port_linknet34
+
+
+@pytest.fixture(scope="module")
+def linknet():
+    module, params, stats = jax_linknet34(seed=0)
+    return module, params, stats, port_linknet34(params, stats)
+
+
+def test_linknet34_eval_logits_match_segtpu(linknet):
+    module, params, stats, model = linknet
+    x = np.random.RandomState(3).normal(0.0, 1.0, (2, 64, 64, 3)).astype(np.float32)
+    want = np.asarray(module.apply({"params": params, "batch_stats": stats},
+                                   jnp.asarray(x), train=False))
+    with torch.inference_mode():
+        got = model(torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2))))
+    assert got.dtype == torch.float32 and got.shape == (2, 1, 64, 64)
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1), want, atol=3e-4)
+
+
+def test_linknet34_parameter_counts_match(linknet):
+    _, params, _, model = linknet
+    n_jax = sum(int(np.prod(np.shape(v))) for v in _leaves(params))
+    assert sum(p.numel() for p in model.parameters()) == n_jax
+
+
+def test_state_dict_from_jax_equals_export_state_dict(linknet):
+    """Cross-check against segtpu's own exporter. segtpu keeps no
+    num_batches_tracked; the port fills it with 0 for each plain BatchNorm."""
+    _, params, stats, model = linknet
+    ours = state_dict_from_jax("linknet34", params, stats)
+    theirs = export_state_dict("linknet34", params, stats)
+    tracked = {k for k in ours if k.endswith(".num_batches_tracked")}
+    assert set(ours) - tracked == set(theirs)
+    assert set(ours) == set(model.state_dict())
+    assert all(int(ours[k]) == 0 for k in tracked)
+    for k, v in theirs.items():
+        np.testing.assert_array_equal(ours[k].numpy(), v, err_msg=k)
+
+
+def test_state_dict_from_jax_rejects_unported_model():
+    with pytest.raises(ValueError, match="not yet ported"):
+        state_dict_from_jax("zf_unet", {}, {})
+
+
+def test_get_model_rejects_unported_model():
+    with pytest.raises(ValueError, match="not yet ported"):
+        get_model("unet", device="cpu")
+
+
+def test_get_model_without_device_raises_on_cpu_only_host(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model("linknet34")
+
+
+def test_get_model_is_seeded():
+    a = get_model("linknet34", device="cpu", seed=5).state_dict()
+    b = get_model("linknet34", device="cpu", seed=5).state_dict()
+    c = get_model("linknet34", device="cpu", seed=6).state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["firstconv.weight"], c["firstconv.weight"])
+
+
+def test_snapshot_roundtrip(tmp_path, linknet):
+    model = linknet[3]
+    path = tmp_path / "linknet34_checkpoint.pth"
+    save_snapshot(str(path), model, epoch=3, loss=0.25, train_history={"loss": [1.0]},
+                  args="-m linknet34")
+    state_dict, meta = load_snapshot(str(path))
+    assert meta == {"epoch": 3, "loss": 0.25, "train_history": {"loss": [1.0]},
+                    "args": "-m linknet34"}
+    ref = model.state_dict()
+    assert set(state_dict) == set(ref)
+    assert all(torch.equal(state_dict[k], ref[k]) for k in ref)
+    with pytest.raises(ValueError, match="unknown snapshot fields"):
+        save_snapshot(str(path), model, optimizer={})
+
+
+PORT_MODULES = [
+    "segtpu_torch", "segtpu_torch.device", "segtpu_torch.ops.abn", "segtpu_torch.ops.kernels",
+    "segtpu_torch.models", "segtpu_torch.models.layers", "segtpu_torch.models.encoders.resnet",
+    "segtpu_torch.models.linknet", "segtpu_torch.compat.jax_params",
+    "segtpu_torch.train.checkpoint", "segtpu_torch.train.state", "segtpu_torch.augment",
+    "segtpu_torch.augment.host", "segtpu_torch.data.inria", "segtpu_torch.utils",
+    "segtpu_torch.tiles", "segtpu_torch.inference", "segtpu_torch.submit_cli",
+    "segtpu_torch.profile_serve",
+]
+
+
+def test_port_imports_neither_jax_nor_segtpu():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'segtpu' or m.startswith('segtpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
