@@ -6,6 +6,14 @@ Phases, one JSON line each; any failure exits non-zero:
 
   device       the card (nvidia-smi name and power limit), torch and CUDA versions
   build        nvcc build of every CUDA kernel of segtpu_torch/csrc, in seconds
+  kernel_b1    the channel-sums kernel against its plain PyTorch version
+               (fp32/bf16, channels_last/NCHW/[M, C], single and pair forms, a
+               ragged M, C = 37, then every BatchNorm and InPlaceABN input shape
+               of one LinkNet34 training step at batch 16, patch 512), with its
+               time, bytes, bound and torch.var_mean's time at the largest shape
+  kernel_b3    the from-output ABN backward kernel against its plain version
+               (the same cases, three activations, then the twelve InPlaceABN
+               shapes of the step), with its time, bytes and bound
   kernel_b2    the fused BN+activation kernel against its plain PyTorch version
                (fp32/bf16, channels_last/NCHW, three activations, a ragged
                tail, and the twelve decoder shapes of a LinkNet34 pass at tile
@@ -17,8 +25,17 @@ Phases, one JSON line each; any failure exits non-zero:
                seeded 5000x5000 uint8 images after one warm image; s/image,
                peak memory and kernel launches, plus bf16-vs-fp32 masks and a
                small-image card-vs-CPU parity check
+  train_parity one fp32 LinkNet34 training step (SGD, dropout off, TF32 off) on
+               2x3x128x128 SHAPES, card against CPU: loss, every gradient,
+               running statistics and the parameters after the step
+  train        the training path at full width: LinkNet34, batch 16, patch
+               512, bf16 autocast, bce_jaccard, Adam lr 1e-3, one fixed
+               DeviceShapes batch, 3 warm steps then 20 timed ones; images/s,
+               ms/step, peak memory, first and last loss, and the launches of
+               B1, B2 and B3 per step against the layer count
 
-Then the kernel table line, the nvidia-smi line, and last
+The kernel counts are set to 0 just before each main path (serve, train) and
+read just after it. Then the kernel table line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from a seed,
 with the normalisation statistics set from one calibration batch so that every
 layer sees activations of order one.
@@ -38,17 +55,29 @@ import torch
 
 from segtpu_torch.augment import host as aug
 from segtpu_torch.data.inria import INRIA_MEAN, INRIA_STD
+from segtpu_torch.data.shapes import DeviceShapes, ShapesDataset, to_nchw
 from segtpu_torch.inference import predict_tiled, predict_tiled_stream
 from segtpu_torch.models import get_model
 from segtpu_torch.models.layers import BatchNormTorch, InPlaceABN
+from segtpu_torch.ops import abn as abn_ops
 from segtpu_torch.ops import kernels
-from segtpu_torch.ops.abn import abn_norm_act_plain
+from segtpu_torch.ops.abn import abn_bwd_sums_plain, abn_norm_act_plain, channel_sums_plain
+from segtpu_torch.ops.losses import get_loss
+from segtpu_torch.ops.metrics import default_metrics
 from segtpu_torch.train.checkpoint import load_snapshot, save_snapshot
-from segtpu_torch.train.state import make_predict_step
+from segtpu_torch.train.optim import get_optimizer
+from segtpu_torch.train.state import make_predict_step, make_train_step
 
 SEED = 0
 PATCH, BATCH, IMAGE_SIDE, N_IMAGES, DEPTH = 512, 64, 5000, 2, 2
 SLOPE = 0.01
+TRAIN_BATCH, TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS = 16, 1e-3, 3, 20
+# Launches per LinkNet34 training step: B1 for the 36 BatchNorm forwards, the
+# 36 BatchNorm backwards and the 12 InPlaceABN forwards; B2 for the affine of
+# the 36 BatchNorms and the 12 InPlaceABNs; B3 for the 12 InPlaceABN backwards.
+STEP_LAUNCHES = {"channel_sums": 84, "abn_norm_act": 48, "abn_bwd": 12}
+# Channel sums of fp32 terms, added in two orders: |err| <= RTOL_SUM * sum |term|.
+RTOL_SUM = 1e-5
 
 # Device-memory rate (bytes/s) and fp32 CUDA-core rate (FLOP/s) by card name,
 # from NVIDIA's data sheets; the first matching key wins.
@@ -151,18 +180,210 @@ def _check(x, scale, shift, act, tol):
     return err.max().item()
 
 
+class fp32_convolutions:
+    """TF32 off for cuDNN and matmuls inside the block; these flags and
+    ``cudnn.enabled`` are restored after."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.enabled)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.enabled) = self.saved
+
+
+def timing_entry(nbytes: int, ops: int, card: str, **times) -> dict:
+    """Bytes, bound and times of one kernel at one shape; the bound is the
+    larger of bytes over the memory rate and operations over the fp32 rate."""
+    bw, flops, _ = card_rates(card)
+    t_bytes, t_ops = nbytes / bw, ops / flops
+    return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations", **times)
+
+
+def step_norm_shapes():
+    """Input shapes of the 36 BatchNorm and 12 InPlaceABN layers of one
+    LinkNet34 training step at batch TRAIN_BATCH, patch PATCH, in bf16
+    channels_last, recorded by hooks on one forward pass."""
+    model = seeded_model("cuda")
+    shapes = {"bn": [], "abn": []}
+
+    def hook(kind):
+        return lambda mod, inp: shapes[kind].append(tuple(inp[0].shape))
+
+    handles = [m.register_forward_pre_hook(hook("bn" if isinstance(m, BatchNormTorch) else "abn"))
+               for m in model.modules() if isinstance(m, (BatchNormTorch, InPlaceABN))]
+    x = torch.zeros(TRAIN_BATCH, 3, PATCH, PATCH, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        model(x)
+    for h in handles:
+        h.remove()
+    if (len(shapes["bn"]), len(shapes["abn"])) != (36, 12):
+        raise AssertionError(f"expected 36 BN and 12 ABN layers, found {len(shapes['bn'])} "
+                             f"and {len(shapes['abn'])}")
+    del model
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def in_layout(x, layout):
+    """``x`` as channels_last, nchw (contiguous; a 2-D tensor is [M, C]) or
+    unaligned (contiguous, one element off a 16-byte boundary, so the
+    kernels take their scalar path)."""
+    if layout == "channels_last":
+        return x.contiguous(memory_format=torch.channels_last)
+    if layout == "unaligned":
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        return buf[1:].view(x.shape).copy_(x)
+    return x
+
+
+def cuda_input(shape, dtype, layout, g, mean=0.3, std=2.0):
+    """A seeded tensor on the card in ``layout`` (see :func:`in_layout`)."""
+    return in_layout((torch.randn(shape, device="cuda", generator=g) * std + mean).to(dtype), layout)
+
+
+def _check_sums(name, got, want, magnitude, what):
+    """Each channel sum within RTOL_SUM of the sum of its terms' magnitudes.
+    Returns the largest absolute error and the largest error over that sum."""
+    worst_abs, worst_rel = 0.0, 0.0
+    for g, w, m, label in zip(got, want, magnitude, ("first", "second")):
+        err = (g.double() - w.double()).abs()
+        bound = RTOL_SUM * m.double() + 1e-6
+        if bool((err > bound).any()) or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name} disagrees with its plain version ({label} sum, {what}): "
+                                 f"max err {err.max().item()}")
+        worst_abs = max(worst_abs, err.max().item())
+        worst_rel = max(worst_rel, (err / m.double().clamp_min(1e-30)).max().item())
+    return worst_abs, worst_rel
+
+
+def _b1_case(a, b):
+    got = kernels.channel_sums_cuda(a, b)
+    want = channel_sums_plain(a, b)
+    magnitude = channel_sums_plain(a.abs(), None if b is None else b.abs())
+    torch.cuda.synchronize()
+    return _check_sums("channel_sums", got, want, magnitude,
+                       f"{a.dtype} {tuple(a.shape)} {a.stride()} pair={b is not None}")
+
+
+def phase_kernel_b1(card: str, norm_shapes):
+    """B1 against its plain version, then its time at the largest shape of
+    the training step."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    n_cases, max_err, max_rel = 0, 0.0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, layout in (((3, 37, 19, 23), "channels_last"), ((3, 37, 19, 23), "nchw"),
+                              ((1500, 48), "nchw"), ((1499, 37), "nchw"),
+                              ((4, 64, 32, 32), "channels_last"), ((4, 64, 32, 32), "nchw"),
+                              ((2, 24, 17, 9), "unaligned")):
+            for pair in (False, True):
+                a = cuda_input(shape, dtype, layout, g)
+                b = cuda_input(shape, dtype, layout, g, mean=-0.2, std=1.0) if pair else None
+                err, rel = _b1_case(a, b)
+                max_err, max_rel, n_cases = max(max_err, err), max(max_rel, rel), n_cases + 1
+    unique = sorted(set(norm_shapes["bn"] + norm_shapes["abn"]))
+    for shape in unique:
+        for pair in (False, True):
+            a = cuda_input(shape, torch.bfloat16, "channels_last", g)
+            b = cuda_input(shape, torch.bfloat16, "channels_last", g, 0.0, 1.0) if pair else None
+            err, rel = _b1_case(a, b)
+            max_err, max_rel, n_cases = max(max_err, err), max(max_rel, rel), n_cases + 1
+
+    big = max(unique, key=lambda s: int(np.prod(s)))
+    a = cuda_input(big, torch.bfloat16, "channels_last", g)
+    b = cuda_input(big, torch.bfloat16, "channels_last", g, 0.0, 1.0)
+    n, c = a.numel(), big[1]
+    single = timing_entry(
+        n * 2 + 2 * 4 * c, 3 * n, card,
+        ms=cuda_ms(lambda: kernels.channel_sums_cuda(a)),
+        plain_ms=cuda_ms(lambda: channel_sums_plain(a)),
+        library_ms=cuda_ms(lambda: torch.var_mean(a, dim=(0, 2, 3), correction=0)))
+    pair = timing_entry(
+        2 * n * 2 + 2 * 4 * c, 3 * n, card,
+        ms=cuda_ms(lambda: kernels.channel_sums_cuda(a, b)),
+        plain_ms=cuda_ms(lambda: channel_sums_plain(a, b)), library_ms=None)
+    emit("kernel_b1", cases=n_cases, step_shapes=len(unique), max_abs_err=max_err,
+         max_err_over_sum_abs=max_rel,
+         tolerance=f"per channel |err| <= {RTOL_SUM} * sum|term| + 1e-6",
+         largest=dict(shape=list(big), dtype="bfloat16", layout="channels_last",
+                      single=single, pair=pair),
+         library="torch.var_mean(x, dim=(0, 2, 3), correction=0) for the single form; "
+                 "none for the pair form")
+    return dict(single, shape=list(big)), max_err
+
+
+def _b3_case(z, g, gamma, beta, act):
+    got = kernels.abn_bwd_sums_cuda(z, g, gamma, beta, act, SLOPE)
+    want = abn_bwd_sums_plain(z, g, gamma, beta, act, SLOPE)
+    zf, gf = z.float(), g.float()
+    view = (1, z.shape[1]) + (1,) * (z.dim() - 2)
+    dy = (gf * abn_ops.act_grad_from_output(zf, act, SLOPE)).abs()
+    xhat = ((abn_ops.act_invert(zf, act, SLOPE) - beta.view(view)) / gamma.view(view)).abs()
+    dims = (0,) + tuple(range(2, z.dim()))
+    magnitude = (dy.sum(dims), (xhat * dy).sum(dims))
+    torch.cuda.synchronize()
+    return _check_sums("abn_bwd_sums", got, want, magnitude,
+                       f"{z.dtype} {tuple(z.shape)} {z.stride()} {act}")
+
+
+def _abn_output(shape, dtype, layout, act, g):
+    """(z, grad, gamma, beta): z = act(y) for a seeded pre-activation y of
+    both signs, so that the backward inverts real outputs."""
+    c = shape[1]
+    gamma = torch.rand(c, device="cuda", generator=g) + 0.5
+    beta = torch.randn(c, device="cuda", generator=g) * 0.3
+    y = cuda_input(shape, torch.float32, "nchw", g, mean=0.0, std=1.0)
+    z = in_layout(abn_ops.act_forward(y, act, SLOPE).to(dtype), layout)
+    grad = torch.empty_like(z).copy_(torch.randn(shape, device="cuda", generator=g))
+    return z, grad, gamma, beta
+
+
+def phase_kernel_b3(card: str, norm_shapes):
+    """B3 against its plain version, then its time at the largest InPlaceABN
+    shape of the training step."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    n_cases, max_err, max_rel = 0, 0.0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for act in ("leaky_relu", "elu", "none"):
+            for shape, layout in (((3, 37, 19, 23), "channels_last"), ((3, 37, 19, 23), "nchw"),
+                                  ((1500, 48), "nchw"), ((4, 64, 32, 32), "channels_last"),
+                                  ((4, 64, 32, 32), "nchw"), ((2, 24, 17, 9), "unaligned")):
+                err, rel = _b3_case(*_abn_output(shape, dtype, layout, act, g), act)
+                max_err, max_rel, n_cases = max(max_err, err), max(max_rel, rel), n_cases + 1
+    unique = sorted(set(norm_shapes["abn"]))
+    for shape in unique:
+        err, rel = _b3_case(*_abn_output(shape, torch.bfloat16, "channels_last", "leaky_relu", g),
+                            "leaky_relu")
+        max_err, max_rel, n_cases = max(max_err, err), max(max_rel, rel), n_cases + 1
+
+    big = max(unique, key=lambda s: int(np.prod(s)))
+    z, grad, gamma, beta = _abn_output(big, torch.bfloat16, "channels_last", "leaky_relu", g)
+    n, c = z.numel(), big[1]
+    largest = timing_entry(
+        2 * n * 2 + 2 * 4 * c + 2 * 4 * c, 8 * n, card,
+        ms=cuda_ms(lambda: kernels.abn_bwd_sums_cuda(z, grad, gamma, beta, "leaky_relu", SLOPE)),
+        plain_ms=cuda_ms(lambda: abn_bwd_sums_plain(z, grad, gamma, beta, "leaky_relu", SLOPE)),
+        library_ms=None)
+    emit("kernel_b3", cases=n_cases, step_shapes=len(unique), max_abs_err=max_err,
+         max_err_over_sum_abs=max_rel,
+         tolerance=f"per channel |err| <= {RTOL_SUM} * sum|term| + 1e-6",
+         largest=dict(largest, shape=list(big), dtype="bfloat16", layout="channels_last",
+                      activation="leaky_relu"),
+         library="none: no single PyTorch call computes these sums")
+    return dict(largest, shape=list(big)), max_err
+
+
 def phase_kernel_b2(card: str):
     """The kernel against its plain version, then its time at the main path's shapes."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     tol = {torch.float32: (0.0, 1e-6), torch.bfloat16: (8e-3, 0.0)}
 
     def inputs(shape, dtype, layout):
-        x = (torch.randn(shape, device="cuda", generator=g) * 2.0 + 0.3).to(dtype)
-        if layout == "channels_last":
-            x = x.contiguous(memory_format=torch.channels_last)
-        elif layout == "unaligned":  # contiguous but 2 bytes off a 16-byte boundary
-            buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
-            x = buf[1:].view(shape).copy_(x)
+        x = cuda_input(shape, dtype, layout, g)
         c = shape[1]
         scale = torch.rand(c, device="cuda", generator=g) + 0.5
         shift = torch.randn(c, device="cuda", generator=g)
@@ -186,19 +407,16 @@ def phase_kernel_b2(card: str):
     max_err[torch.float32] = max(max_err[torch.float32], err)
     n_cases += 1
 
-    bw, flops, rate_src = card_rates(card)
+    bw, _, rate_src = card_rates(card)
 
     def timing(shape):
         x, scale, shift = inputs(shape, torch.bfloat16, "channels_last")
         n, c = x.numel(), shape[1]
-        nbytes = 2 * n * x.element_size() + 2 * 4 * c
-        ops = 3 * n  # multiply, add, select per element
-        bound_ms = max(nbytes / bw, ops / flops) * 1e3
-        bound_by = "bytes" if nbytes / bw >= ops / flops else "operations"
-        ms = cuda_ms(lambda: kernels.abn_norm_act_cuda(x, scale, shift, "leaky_relu", SLOPE))
-        plain_ms = cuda_ms(lambda: abn_norm_act_plain(x, scale, shift, "leaky_relu", SLOPE))
-        return dict(shape=list(shape), bytes=nbytes, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=bound_by)
+        # x read, out written; multiply, add, select per element
+        return dict(shape=list(shape), **timing_entry(
+            2 * n * x.element_size() + 2 * 4 * c, 3 * n, card,
+            ms=cuda_ms(lambda: kernels.abn_norm_act_cuda(x, scale, shift, "leaky_relu", SLOPE)),
+            plain_ms=cuda_ms(lambda: abn_norm_act_plain(x, scale, shift, "leaky_relu", SLOPE))))
 
     per_shape = [timing(s) for s in shapes]
     largest = per_shape[shapes.index(big)]
@@ -234,17 +452,11 @@ def phase_model_parity(tmpdir: Path):
     gpu_model = seeded_model("cuda", state_dict)
 
     x = torch.from_numpy(rng.standard_normal((2, 3, PATCH, PATCH), np.float32) * 0.5)
-    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with fp32_convolutions(), torch.inference_mode():
         kernels.reset_launch_counts()
-        with torch.inference_mode():
-            got = gpu_model(x.cuda().contiguous(memory_format=torch.channels_last)).cpu()
+        got = gpu_model(x.cuda().contiguous(memory_format=torch.channels_last)).cpu()
         launches = kernels.launch_counts()
-        with torch.inference_mode():
-            want = cpu_model(x)
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        want = cpu_model(x)
     logit_err = (got - want).abs().max().item()
     prob_err = (torch.sigmoid(got) - torch.sigmoid(want)).abs().max().item()
     ok = got.shape == (2, 1, PATCH, PATCH) and bool(torch.isfinite(got).all()) and prob_err <= 1e-3
@@ -300,12 +512,8 @@ def phase_serve(state_dict):
 
     # bf16 vs fp32 (TF32 off) on a 1024^2 crop
     crop = images[0][:1024, :1024]
-    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with fp32_convolutions():
         p32 = predict_tiled(crop, make_predict_step(model, bf16=False), **kw)
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     p16 = predict_tiled(crop, bf16_fn, **kw)
     agree = float(((p32 > 0.5) == (p16 > 0.5)).mean())
     prob_diff = float(np.abs(p32 - p16).max())
@@ -314,11 +522,8 @@ def phase_serve(state_dict):
     small = rng.integers(0, 256, (150, 130, 3), dtype=np.uint8)
     cpu_model = seeded_model("cpu", state_dict)
     small_kw = dict(kw, patch_size=64, batch_size=16)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with fp32_convolutions():
         small_gpu = predict_tiled(small, make_predict_step(model), **small_kw)
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     small_cpu = predict_tiled(small, make_predict_step(cpu_model), **dict(small_kw, device="cpu"))
     small_err = float(np.abs(small_gpu - small_cpu).max())
 
@@ -336,27 +541,169 @@ def phase_serve(state_dict):
     return launches
 
 
+# train_parity tolerances. The step is ill-conditioned at random init: a few
+# gradient tensors are small differences of large terms, so one fp32 rounding
+# moves them by percents. Against a float64 run of the same code, the CPU's
+# own fp32 step is off by up to 2.2e-2 of a tensor's max |g| (median 5.9e-5),
+# and the card's by up to 1.3e-2 (median 1.0e-3, most of it from cuDNN's fp32
+# convolution algorithms: the phase also reports a card run with cuDNN off).
+# A wrong formula in a normalisation layer moves every gradient upstream of
+# it by order one.
+# Gradient errors are relative to max(max |g| of the tensor, 1e-3 * the
+# model's max |g|): a conv bias that feeds a BatchNorm has a true gradient of 0.
+PARITY_TOL = {"loss_rtol": 1e-5, "grad_median": 5e-3, "grad_max": 0.1, "grad_floor": 1e-3,
+              "stats_atol": 1e-5, "stats_rtol": 1e-4, "params_atol": 1e-6}
+PARITY_LR = 0.01
+
+
+def _grad_errors(got, want):
+    """Per-tensor max |got - want| over max(max |want|, floor), worst first."""
+    floor = PARITY_TOL["grad_floor"] * max(float(w.abs().max()) for w in want.values())
+    return sorted(((float((got[n].double() - w).abs().max()) / max(float(w.abs().max()), floor), n)
+                   for n, w in want.items()), reverse=True)
+
+
+def _grad_summary(errs):
+    return dict(median=errs[len(errs) // 2][0], max=errs[0][0],
+                worst=[dict(name=n, err=e) for e, n in errs[:3]])
+
+
+def phase_train_parity():
+    """One SGD training step of the seeded LinkNet34 on 2x3x128x128 SHAPES
+    (dropout off): fp32 on the card (TF32 off) against fp32 on the CPU, and
+    both against the same step in float64 on the CPU."""
+    x, y = to_nchw([ShapesDataset(2, 128, seed=SEED + 30)[i] for i in range(2)])
+    runs = {}
+    with fp32_convolutions():
+        for key, device, dtype in (("card", "cuda", torch.float32), ("card_no_cudnn", "cuda", torch.float32),
+                                   ("cpu", "cpu", torch.float32), ("cpu_f64", "cpu", torch.float64)):
+            torch.backends.cudnn.enabled = key != "card_no_cudnn"
+            model = seeded_model(device).to(dtype)
+            model.finaldrop1.p = 0.0
+            step = make_train_step(model, get_optimizer("sgd", model.parameters(), PARITY_LR),
+                                   get_loss("bce_jaccard"), default_metrics())
+            kernels.reset_launch_counts()
+            logs = step(x.to(device, dtype), y.to(device, dtype), PARITY_LR)
+            if key == "card":
+                torch.cuda.synchronize()
+                launches = kernels.launch_counts()
+            runs[key] = (float(logs["loss"]),
+                         {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()},
+                         {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    (loss_g, grads_g, state_g), (loss_c, grads_c, state_c) = runs["card"], runs["cpu"]
+    grads_64 = runs["cpu_f64"][1]
+    t = PARITY_TOL
+    vs_cpu = _grad_summary(_grad_errors(grads_g, grads_c))
+    vs_f64 = _grad_summary(_grad_errors(grads_g, grads_64))
+    cpu_vs_f64 = _grad_summary(_grad_errors(grads_c, grads_64))
+    no_cudnn_vs_f64 = _grad_summary(_grad_errors(runs["card_no_cudnn"][1], grads_64))
+    stats_err, params_err = 0.0, 0.0
+    stats_ok = True
+    for k, v in state_c.items():
+        if k.endswith("num_batches_tracked"):
+            stats_ok &= int(state_g[k]) == int(v) == 1
+        elif k.endswith(("running_mean", "running_var")):
+            err = (state_g[k] - v).abs()
+            stats_err = max(stats_err, float(err.max()))
+            stats_ok &= bool((err <= t["stats_atol"] + t["stats_rtol"] * v.abs()).all())
+        else:
+            params_err = max(params_err, float((state_g[k] - v).abs().max()))
+    grads_ok = all(s["median"] <= t["grad_median"] and s["max"] <= t["grad_max"]
+                   for s in (vs_cpu, vs_f64))
+    ok = (abs(loss_g - loss_c) <= t["loss_rtol"] * abs(loss_c) and np.isfinite(loss_g)
+          and grads_ok and stats_ok and params_err <= t["params_atol"]
+          and launches == STEP_LAUNCHES)
+    emit("train_parity", input=[2, 3, 128, 128], optimizer="sgd", lr=PARITY_LR,
+         loss_card=loss_g, loss_cpu=loss_c, loss_cpu_f64=runs["cpu_f64"][0],
+         grad_err_card_vs_cpu=vs_cpu, grad_err_card_vs_f64=vs_f64,
+         grad_err_cpu_vs_f64=cpu_vs_f64, grad_err_card_no_cudnn_vs_f64=no_cudnn_vs_f64,
+         max_running_stat_err=stats_err,
+         max_param_err=params_err, launches=launches, tolerance=t, ok=bool(ok))
+    if not ok:
+        raise AssertionError("train_parity failed")
+
+
+def phase_train():
+    """The training path: full-width LinkNet34 training steps on the card."""
+    model = seeded_model("cuda")
+    opt = get_optimizer("adam", model.parameters(), TRAIN_LR)
+    step = make_train_step(model, opt, get_loss("bce_jaccard"), default_metrics(), bf16=True)
+    x, y = DeviceShapes(PATCH, device="cuda").batch(
+        TRAIN_BATCH, torch.Generator(device="cuda").manual_seed(SEED + 40))
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        losses.append(step(x, y, TRAIN_LR)["loss"])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        logs = step(x, y, TRAIN_LR)
+        losses.append(logs["loss"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = [float(v) for v in losses]
+    logs = {k: float(v) for k, v in logs.items()}
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    ok = (all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and per_step == {k: float(v) for k, v in STEP_LAUNCHES.items()}
+          and np.isfinite(logs["grad_absmax"]))
+    emit("train", model="linknet34", batch=TRAIN_BATCH, patch=PATCH, dtype="bf16 autocast",
+         loss="bce_jaccard", optimizer="adam", lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+         steps=TRAIN_STEPS, images_per_s=TRAIN_BATCH * TRAIN_STEPS / seconds,
+         ms_per_step=seconds * 1e3 / TRAIN_STEPS, seconds=seconds, warm_s=warm_s,
+         max_memory_allocated=peak, first_loss=losses[0], last_loss=losses[-1],
+         losses=losses, last_logs=logs, launches=launches, launches_per_step=per_step,
+         expected_launches_per_step=STEP_LAUNCHES, ok=bool(ok))
+    if not ok:
+        raise AssertionError("train checks failed")
+    return launches
+
+
+def kernel_entry(kid, name, replaces, launches, max_err, timing, **extra):
+    return {"id": kid, "name": name, "checked": True, "route": "cuda",
+            "source": f"segtpu_torch/csrc/{kernels.SOURCES[name]}", "replaces": replaces,
+            "launches": launches, "max_abs_err": max_err, "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
+            "shape": timing["shape"], "dtype": "bfloat16", "layout": "channels_last", **extra}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
         return 2
     card, smi = phase_device()
     phase_build()
-    largest, max_err = phase_kernel_b2(card)
+    norm_shapes = step_norm_shapes()
+    b1, b1_err = phase_kernel_b1(card, norm_shapes)
+    b3, b3_err = phase_kernel_b3(card, norm_shapes)
+    b2, b2_err = phase_kernel_b2(card)
     with tempfile.TemporaryDirectory() as tmp:
         state_dict = phase_model_parity(Path(tmp))
-    launches = phase_serve(state_dict)
-    if launches["abn_norm_act"] == 0:
-        raise AssertionError("the serving path never launched the B2 kernel")
-    print(json.dumps({"kernels": [{
-        "id": "B2", "name": "abn_norm_act", "checked": True, "route": "cuda",
-        "source": "segtpu_torch/csrc/abn_norm_act.cu",
-        "replaces": "segtpu/ops/bn_alt.py:181",
-        "launches": launches["abn_norm_act"], "max_abs_err": max_err,
-        "ms": largest["ms"], "plain_ms": largest["plain_ms"], "bound_ms": largest["bound_ms"],
-        "bound_by": largest["bound_by"], "library_ms": None,
-        "shape": largest["shape"], "dtype": "bfloat16", "layout": "channels_last",
-    }]}), flush=True)
+    serve = phase_serve(state_dict)
+    phase_train_parity()
+    train = phase_train()
+    for name, count in (("abn_norm_act", serve["abn_norm_act"]), ("channel_sums", train["channel_sums"]),
+                        ("abn_norm_act", train["abn_norm_act"]), ("abn_bwd", train["abn_bwd"])):
+        if count == 0:
+            raise AssertionError(f"a main path never launched the {name} kernel")
+    print(json.dumps({"kernels": [
+        kernel_entry("B1", "channel_sums", "segtpu/ops/bn_alt.py:100", train["channel_sums"],
+                     b1_err, b1, form="single (sum x, sum x^2); library: torch.var_mean"),
+        kernel_entry("B2", "abn_norm_act", "segtpu/ops/bn_alt.py:181",
+                     serve["abn_norm_act"] + train["abn_norm_act"], b2_err, dict(b2, library_ms=None),
+                     launches_by_path={"serve": serve["abn_norm_act"],
+                                       "train": train["abn_norm_act"]}),
+        kernel_entry("B3", "abn_bwd", "segtpu/ops/bn_alt.py:216", train["abn_bwd"], b3_err, b3,
+                     activation="leaky_relu"),
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)

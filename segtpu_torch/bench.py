@@ -1,0 +1,90 @@
+"""Training throughput of the port (counterpart of bench.py:40-96, 200-248).
+
+    python -m segtpu_torch.bench --config linknet34-bce_jaccard-adam-512
+
+prints one JSON line with ``bench.py``'s keys, ``{"metric", "value", "unit",
+"vs_baseline"}`` (``vs_baseline`` is null: the port keeps no baseline),
+plus the ``device`` it ran on. It runs on CUDA unless given
+``--device cpu``. Weights are random, drawn from a seed; the batch is one
+fixed SHAPES batch made on the device (segtpu's default when no DSB2018
+directory is present).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from segtpu_torch.data.shapes import DeviceShapes
+from segtpu_torch.device import DeviceLike, resolve_device
+from segtpu_torch.models import get_model
+from segtpu_torch.ops.losses import get_loss
+from segtpu_torch.ops.metrics import default_metrics
+from segtpu_torch.train.optim import get_optimizer
+from segtpu_torch.train.state import make_train_step
+
+BENCH_CONFIGS = {
+    "linknet34-bce_jaccard-adam-512": dict(
+        model_name="linknet34", patch=512, batch_size=16, loss_name="bce_jaccard",
+        optimizer="adam"),
+}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def measure_train(batch_size: int = 16, patch: int = 512, steps: int = 20, warmup: int = 3,
+                  model_name: str = "linknet34", bf16: bool = True,
+                  loss_name: str = "bce_jaccard", optimizer: str = "adam",
+                  lr: float = 1e-3, device: DeviceLike = None, seed: int = 0) -> float:
+    """Images per second of ``steps`` training steps after ``warmup`` ones,
+    on one fixed batch. Raises if the last loss is not finite."""
+    dev = resolve_device(device)
+    model = get_model(model_name, patch_size=patch, device=dev, seed=seed)
+    opt = get_optimizer(optimizer, model.parameters(), lr)
+    step = make_train_step(model, opt, get_loss(loss_name), default_metrics(), bf16=bf16)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x, y = DeviceShapes(patch, device=dev).batch(batch_size, gen)
+
+    for _ in range(warmup):
+        logs = step(x, y, lr)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logs = step(x, y, lr)
+    final_loss = float(logs["loss"])
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    if final_loss != final_loss or abs(final_loss) == float("inf"):
+        raise FloatingPointError(f"non-finite loss {final_loss} in the bench")
+    return batch_size * steps / dt
+
+
+def run_config(name: str, device: DeviceLike = None) -> dict:
+    dev = resolve_device(device)
+    value = measure_train(device=dev, **BENCH_CONFIGS[name])
+    return {
+        "metric": f"{name} bf16 train throughput",
+        "value": round(value, 2),
+        "unit": "images/sec/gpu" if dev.type == "cuda" else "images/sec/cpu",
+        "vs_baseline": None,
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+    }
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--config", required=True, choices=sorted(BENCH_CONFIGS))
+    parser.add_argument("--device", default=None,
+                        help="torch device (default cuda; 'cpu' to run on the CPU)")
+    args = parser.parse_args(argv)
+    print(json.dumps(run_config(args.config, device=args.device)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

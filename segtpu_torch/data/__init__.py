@@ -1,1 +1,1 @@
-"""Dataset constants of the port."""
+"""Datasets of the port: INRIA constants and the SHAPES generators."""

@@ -1,11 +1,15 @@
-"""Layers of the inference slice (counterparts of segtpu/models/layers.py).
+"""Layers of the port (counterparts of segtpu/models/layers.py).
 
 NCHW modules whose attribute and buffer names are the reference's
 state_dict keys (``weight``, ``bias``, ``running_mean``, ``running_var``), so
 a reference ``.pth`` or :func:`segtpu_torch.compat.jax_params.state_dict_from_jax`
-loads with ``load_state_dict``. Inference only: the training-mode forwards of
-the normalisations raise until the training slice (kernels B1/B3) lands.
-Random init takes an explicit ``torch.Generator`` (``reset_parameters``).
+loads with ``load_state_dict``. In training mode the normalisations use the
+batch statistics (kernels B1, B2, B3 through :mod:`segtpu_torch.ops.abn`) and
+update their running statistics as torch's ``BatchNorm2d`` does: momentum
+0.1, and the running var takes the unbiased variance ``var * N / (N - 1)``.
+Each layer takes its channel sums once: the statistics that normalise the
+batch are the ones that update the running buffers. Random init takes an
+explicit ``torch.Generator`` (``reset_parameters``).
 """
 
 from __future__ import annotations
@@ -19,8 +23,17 @@ from torch import nn
 
 from segtpu_torch.ops import abn as abn_ops
 
-_TRAINING_SLICE = ("training-mode {} arrives with the training slice of the port "
-                   "(batch statistics: kernel B1; ABN backward: kernel B3)")
+
+
+def _update_running_stats(module: nn.Module, x: torch.Tensor, mean: torch.Tensor,
+                          var: torch.Tensor) -> None:
+    """``running = (1 - momentum) * running + momentum * batch``, with the
+    unbiased batch variance in the running var (segtpu layers.py:116-120)."""
+    count = x.numel() // x.shape[1]
+    m = module.momentum
+    with torch.no_grad():
+        module.running_mean.mul_(1 - m).add_(mean, alpha=m)
+        module.running_var.mul_(1 - m).add_(var * (count / max(count - 1, 1)), alpha=m)
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator]):
@@ -29,8 +42,9 @@ def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator
 
 
 class BatchNormTorch(nn.Module):
-    """BatchNorm2d with torch running-stat semantics, eval mode (segtpu
-    ``BatchNormTorch(use_running_average=True)``)."""
+    """BatchNorm2d with torch running-stat semantics (segtpu
+    ``BatchNormTorch``): batch statistics through :class:`~segtpu_torch.ops.abn.BNTrain`
+    in training mode, the running statistics in eval mode."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -43,14 +57,20 @@ class BatchNormTorch(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(_TRAINING_SLICE.format("BatchNormTorch"))
+            y, mean, var = abn_ops.bn_train(x, self.weight, self.bias, self.eps)
+            _update_running_stats(self, x, mean, var)
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+            return y
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                             self.bias, False, 0.0, self.eps)
 
 
 class InPlaceABN(nn.Module):
-    """Fused activated BN, eval mode (segtpu ``InPlaceABN``; reference
-    lib/modules/abn/bn.py:47-103): one pass of the B2 kernel on CUDA."""
+    """Fused activated BN (segtpu ``InPlaceABN``; reference
+    lib/modules/abn/bn.py:47-103). Eval mode: one pass of the B2 kernel on
+    CUDA. Training mode: :class:`~segtpu_torch.ops.abn.FusedABNTrain` (B1,
+    B2; backward B3 from the saved output, never the input)."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
                  activation: str = abn_ops.ACT_LEAKY_RELU, slope: float = 0.01):
@@ -64,7 +84,11 @@ class InPlaceABN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(_TRAINING_SLICE.format("InPlaceABN"))
+            z, mean, var = abn_ops.fused_abn(
+                x, self.weight, self.bias, training=True, eps=self.eps,
+                activation=self.activation, slope=self.slope)
+            _update_running_stats(self, x, mean, var)
+            return z
         return abn_ops.fused_abn(
             x, self.weight, self.bias, mean=self.running_mean, var=self.running_var,
             training=False, eps=self.eps, activation=self.activation, slope=self.slope)

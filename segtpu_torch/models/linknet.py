@@ -4,8 +4,12 @@ decoder blocks with InPlaceABN, additive skips, deconv + LeakyReLU head.
 
 Attribute names are the reference's state_dict keys: ``firstconv``,
 ``firstbn``, ``encoder1..4``, ``decoder{i}.conv1/abn1/deconv2/abn2/conv3/abn3``,
-``finaldeconv1``, ``finalconv2``, ``finalconv3``. Inference only; the twelve
-InPlaceABN layers of the decoder run the B2 kernel on CUDA.
+``finaldeconv1``, ``finalconv2``, ``finalconv3``. On CUDA the twelve
+InPlaceABN layers of the decoder run the B2 kernel; in training mode they
+and the 36 BatchNorms of the encoder take their batch statistics from B1,
+the BatchNorm backward runs B1 and the InPlaceABN backward B3.
+``finaldrop1`` is torch's ``nn.Dropout2d(0.5)`` (channel dropout, training
+mode only).
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ class DecoderBlockLinkNet(nn.Module):
 
 
 class LinkNet34(nn.Module):
-    """reference lib/models/linknet.py:33-90; logits in fp32."""
+    """reference lib/models/linknet.py:33-90; logits in fp32 (float64 for a
+    float64 model, a CPU reference run)."""
 
     def __init__(self, num_classes: int = 1, num_channels: int = 3,
                  dilated: bool = False, s2d: bool = False):
@@ -82,4 +87,5 @@ class LinkNet34(nn.Module):
         f = self.finaldeconv1(self.finaldrop1(d1))
         f = F.leaky_relu(f, 0.01)
         f = F.leaky_relu(self.finalconv2(f), 0.01)
-        return self.finalconv3(f).float()
+        out = self.finalconv3(f)
+        return out.to(torch.promote_types(out.dtype, torch.float32))

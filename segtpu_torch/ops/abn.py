@@ -1,18 +1,46 @@
-"""Eval-mode fused Activated BatchNorm (counterpart of segtpu/ops/abn.py).
+"""Fused Activated BatchNorm and training-mode BatchNorm (counterpart of
+segtpu/ops/abn.py).
+
+Three kernels, each with a plain PyTorch version beside it here and a CUDA
+wrapper in :mod:`segtpu_torch.ops.kernels`. The dispatchers send a CUDA tensor
+to the kernel (which launches or raises) and a CPU tensor to the plain
+version, which repeats the kernel's fp32 arithmetic:
+
+  B1 :func:`channel_sums`   per-channel fp32 ``(sum a, sum a*b)``
+  B2 :func:`abn_norm_act`   ``act(x * scale + shift)`` per channel
+  B3 :func:`abn_bwd_sums`   the from-output ABN backward sums ``(edz, eydz)``
 
 Inference folds the running statistics into one per-channel affine,
 ``scale = gamma * rsqrt(var + eps)`` and ``shift = beta - mean * scale``
-(fp32), and applies ``act(x * scale + shift)`` in one pass:
-:func:`abn_norm_act` sends a CUDA tensor to the hand-written kernel
-(``segtpu_torch/csrc/abn_norm_act.cu``) and a CPU tensor to
-:func:`abn_norm_act_plain`, the plain PyTorch version with the same fp32
-arithmetic. Training mode (batch statistics and the from-output backward,
-kernels B1/B3) belongs to the training slice and raises here.
+(fp32), and applies it with B2. Training runs two ``torch.autograd.Function``s:
 
-Layout: NCHW, channel dim 1; a 2-D input is a row-major [M, C] view.
+  :class:`BNTrain`        BatchNorm with batch statistics (segtpu ``bn_train``):
+                          B1 statistics, then the affine through B2 with
+                          activation ``"none"``; backward B1 in its pair form
+                          on ``(g, x)``, then the ``dx`` expression.
+  :class:`FusedABNTrain`  InPlaceABN (segtpu ``_fused_abn_train``): B1
+                          statistics, then B2; it saves the output ``z`` and
+                          never the input ``x``; backward B3, then ``dx``
+                          rebuilt from ``z``.
+
+The ``dx`` passes are plain PyTorch elementwise code in fp32 (segtpu leaves
+them to XLA's fusions, outside any Pallas kernel). On the CPU a float64
+input stays float64 throughout, so the same code gives a float64 reference
+run. Each Function also returns the batch ``(mean, var)``, so a layer
+computes its sums once and updates its running statistics from them.
+Neither Function uses ``torch.amp.custom_fwd``:
+under autocast a convolution hands them bf16, which the kernels read as it
+is (fp32 accumulation; outputs keep the input's dtype and memory format,
+gamma and beta stay fp32), and nothing inside them is on autocast's cast
+lists, so ``custom_fwd``/``custom_bwd`` would change nothing.
+
+Layout: NCHW, channel dim 1, contiguous or channels_last; a 2-D input is a
+row-major [M, C] view.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,48 +49,255 @@ from segtpu_torch.ops import kernels
 ACT_LEAKY_RELU = "leaky_relu"
 ACT_ELU = "elu"
 ACT_NONE = "none"
+_ACTS = (ACT_LEAKY_RELU, ACT_ELU, ACT_NONE)
+
+
+def _check_act(activation: str) -> None:
+    if activation not in _ACTS:
+        raise ValueError(f"unknown activation {activation!r}")
 
 
 def act_forward(y: torch.Tensor, activation: str, slope: float) -> torch.Tensor:
+    _check_act(activation)
     if activation == ACT_LEAKY_RELU:
         return torch.where(y >= 0, y, y * slope)
     if activation == ACT_ELU:
         return torch.where(y >= 0, y, torch.expm1(y))
-    if activation == ACT_NONE:
-        return y
-    raise ValueError(f"unknown activation {activation!r}")
+    return y
 
+
+def act_invert(z: torch.Tensor, activation: str, slope: float) -> torch.Tensor:
+    """The pre-activation recovered from the activated output (both
+    activations are bijective)."""
+    _check_act(activation)
+    if activation == ACT_LEAKY_RELU:
+        return torch.where(z >= 0, z, z / slope)
+    if activation == ACT_ELU:
+        return torch.where(z >= 0, z, torch.log1p(z))
+    return z
+
+
+def act_grad_from_output(z: torch.Tensor, activation: str, slope: float) -> torch.Tensor:
+    """d activation / d pre-activation, expressed through the output ``z``."""
+    _check_act(activation)
+    if activation == ACT_LEAKY_RELU:
+        return torch.where(z >= 0, 1.0, slope).to(z.dtype)
+    if activation == ACT_ELU:
+        return torch.where(z >= 0, torch.ones_like(z), z + 1.0)
+    return torch.ones_like(z)
+
+
+def _acc(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic type: fp32, or float64 for a float64
+    input (a CPU reference run); the kernels take fp32 and bf16 only."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _channel_view(x: torch.Tensor) -> Tuple[int, ...]:
+    return (1, x.shape[1]) + (1,) * (x.dim() - 2)
+
+
+def _reduce_dims(x: torch.Tensor) -> Tuple[int, ...]:
+    return (0,) + tuple(range(2, x.dim()))
+
+
+def _on_device(name: str, x: torch.Tensor, cuda_fn, plain_fn, *args):
+    if x.device.type == "cuda":
+        return cuda_fn(x, *args)
+    if x.device.type == "cpu":
+        return plain_fn(x, *args)
+    raise ValueError(f"{name}: no implementation for device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# B1: channel sums
+# ---------------------------------------------------------------------------
+
+def channel_sums_plain(a: torch.Tensor, b: Optional[torch.Tensor] = None):
+    """Per-channel (dim 1) ``(sum a, sum a*b)`` in fp32; ``b=None`` means
+    ``b = a``. The B1 kernel's reference; the CPU path of the port."""
+    af = a.to(_acc(a))
+    bf = af if b is None else b.to(af.dtype)
+    dims = _reduce_dims(a)
+    return af.sum(dims), (af * bf).sum(dims)
+
+
+def channel_sums(a: torch.Tensor, b: Optional[torch.Tensor] = None):
+    """Dispatch by ``a.device``: the B1 kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    return _on_device("channel_sums", a, kernels.channel_sums_cuda, channel_sums_plain, b)
+
+
+def batch_mean_var(x: torch.Tensor):
+    """Per-channel biased batch mean and variance in fp32 over every
+    non-channel dim, from one B1 pass (segtpu ``batch_mean_var``)."""
+    s, q = channel_sums(x)
+    count = x.numel() // x.shape[1]
+    mean = s / count
+    return mean, q / count - mean * mean
+
+
+# ---------------------------------------------------------------------------
+# B2: per-channel affine + activation
+# ---------------------------------------------------------------------------
 
 def abn_norm_act_plain(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                        activation: str, slope: float) -> torch.Tensor:
     """act(x * scale + shift) per channel (dim 1) in fp32, rounded once to
-    ``x``'s dtype. The kernel's reference; the CPU path of the port."""
-    view = (1, x.shape[1]) + (1,) * (x.dim() - 2)
-    y = x.float() * scale.float().view(view) + shift.float().view(view)
+    ``x``'s dtype. The B2 kernel's reference; the CPU path of the port."""
+    view, acc = _channel_view(x), _acc(x)
+    y = x.to(acc) * scale.to(acc).view(view) + shift.to(acc).view(view)
     return act_forward(y, activation, slope).to(x.dtype)
 
 
 def abn_norm_act(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                  activation: str, slope: float) -> torch.Tensor:
-    """Dispatch by ``x.device``: the CUDA kernel for CUDA tensors, the plain
+    """Dispatch by ``x.device``: the B2 kernel for CUDA tensors, the plain
     version for CPU tensors."""
-    if x.device.type == "cuda":
-        return kernels.abn_norm_act_cuda(x, scale, shift, activation, slope)
-    if x.device.type == "cpu":
-        return abn_norm_act_plain(x, scale, shift, activation, slope)
-    raise ValueError(f"abn_norm_act: no implementation for device {x.device}")
+    return _on_device("abn_norm_act", x, kernels.abn_norm_act_cuda, abn_norm_act_plain,
+                      scale, shift, activation, slope)
+
+
+# ---------------------------------------------------------------------------
+# B3: from-output ABN backward sums
+# ---------------------------------------------------------------------------
+
+def abn_bwd_sums_plain(z: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
+                       beta: torch.Tensor, activation: str, slope: float):
+    """Per-channel (dim 1) fp32 ``(edz, eydz) = (sum dy, sum xhat*dy)`` with
+    ``dy = g * act'`` and ``xhat = (act^-1(z) - beta) / gamma``. The B3
+    kernel's reference; the CPU path of the port."""
+    acc, view = _acc(z), _channel_view(z)
+    zf, gf = z.to(acc), g.to(acc)
+    dy = gf * act_grad_from_output(zf, activation, slope)
+    xhat = (act_invert(zf, activation, slope) - beta.to(acc).view(view)) / gamma.to(acc).view(view)
+    dims = _reduce_dims(z)
+    return dy.sum(dims), (xhat * dy).sum(dims)
+
+
+def abn_bwd_sums(z: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                 activation: str, slope: float):
+    """Dispatch by ``z.device``: the B3 kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    return _on_device("abn_bwd_sums", z, kernels.abn_bwd_sums_cuda, abn_bwd_sums_plain,
+                      g, gamma, beta, activation, slope)
+
+
+# ---------------------------------------------------------------------------
+# Training-mode autograd Functions
+# ---------------------------------------------------------------------------
+
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when it is contiguous or channels_last, else a contiguous copy."""
+    if x.is_contiguous() or (x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last)):
+        return x
+    return x.contiguous()
+
+
+def _like(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``g`` in ``x``'s dtype and memory layout, the form B1/B3 take a pair in."""
+    if x.is_contiguous():
+        fmt = torch.contiguous_format
+    else:
+        fmt = torch.channels_last
+    return g.to(dtype=x.dtype).contiguous(memory_format=fmt)
+
+
+class BNTrain(torch.autograd.Function):
+    """Training-mode BatchNorm: ``y = (x - mean) * gamma * rstd + beta`` with
+    the batch's biased statistics, differentiable in ``(x, weight, bias)``
+    with the full torch training backward (gradients flow through the batch
+    statistics). Returns ``(y, mean, var)``; ``mean``/``var`` carry no
+    gradient. Forward: B1, then B2 with ``scale = gamma * rstd`` and
+    ``shift = beta - mean * scale``. Backward (segtpu abn.py:250-289):
+    ``(sum g, sum g*x)`` from B1's pair form, then
+    ``dx = w*g - w*d_beta/N - w*rstd*(x - mean)*d_gamma/N`` elementwise."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float):
+        x = _dense(x)
+        mean, var = batch_mean_var(x)
+        rstd = torch.rsqrt(var + eps)
+        scale = weight.to(rstd.dtype) * rstd
+        shift = bias.to(rstd.dtype) - mean * scale
+        y = abn_norm_act(x, scale, shift, ACT_NONE, 0.0)
+        ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, g, _g_mean, _g_var):
+        x, weight, mean, rstd = ctx.saved_tensors
+        count = x.numel() // x.shape[1]
+        g = _like(g, x)
+        d_bias, sgx = channel_sums(g, x)
+        d_weight = (sgx - mean * d_bias) * rstd
+        w = weight.to(rstd.dtype) * rstd
+        a = w * d_bias / count
+        b2 = w * rstd * d_weight / count
+        view, acc = _channel_view(x), rstd.dtype
+        dx = (g.to(acc) * w.view(view) - (x.to(acc) - mean.view(view)) * b2.view(view)
+              - a.view(view))
+        return dx.to(x.dtype), d_weight.to(weight.dtype), d_bias.to(weight.dtype), None
+
+
+class FusedABNTrain(torch.autograd.Function):
+    """Training-mode fused BN + activation with the memory-saving from-output
+    backward (segtpu ``_fused_abn_train``; reference inplace_abn). Returns
+    ``(z, mean, var)``; ``mean``/``var`` carry no gradient. Saves
+    ``(z, gamma, beta, var)`` and never ``x``. Backward: B3 gives
+    ``edz = sum dy`` and ``eydz = sum xhat*dy``; then
+    ``dx = (dy - edz/N - xhat*eydz/N) * gamma * rstd`` with ``dy`` and
+    ``xhat`` rebuilt from ``z``; ``d_gamma = eydz``, ``d_beta = edz``."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps: float, activation: str, slope: float):
+        x = _dense(x)
+        mean, var = batch_mean_var(x)
+        scale = gamma.to(var.dtype) * torch.rsqrt(var + eps)
+        shift = beta.to(var.dtype) - mean * scale
+        z = abn_norm_act(x, scale, shift, activation, slope)
+        ctx.save_for_backward(z, gamma, beta, var)
+        ctx.eps, ctx.activation, ctx.slope = eps, activation, slope
+        ctx.mark_non_differentiable(mean, var)
+        return z, mean, var
+
+    @staticmethod
+    def backward(ctx, g, _g_mean, _g_var):
+        z, gamma, beta, var = ctx.saved_tensors
+        act, slope = ctx.activation, ctx.slope
+        count = z.numel() // z.shape[1]
+        g = _like(g, z)
+        acc, view = var.dtype, _channel_view(z)
+        gamma_a, beta_a = gamma.to(acc).contiguous(), beta.to(acc).contiguous()
+        edz, eydz = abn_bwd_sums(z, g, gamma_a, beta_a, act, slope)
+        zf = z.to(acc)
+        dy = g.to(acc) * act_grad_from_output(zf, act, slope)
+        xhat = (act_invert(zf, act, slope) - beta_a.view(view)) / gamma_a.view(view)
+        w = gamma_a * torch.rsqrt(var + ctx.eps)
+        dx = (dy - (edz / count).view(view) - xhat * (eydz / count).view(view)) * w.view(view)
+        return (dx.to(z.dtype), eydz.to(gamma.dtype), edz.to(beta.dtype), None, None, None)
+
+
+def bn_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5):
+    """Training-mode BatchNorm: ``(y, batch mean, batch biased var)``."""
+    return BNTrain.apply(x, weight, bias, eps)
 
 
 def fused_abn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
-              mean: torch.Tensor, var: torch.Tensor, training: bool = False,
-              eps: float = 1e-5, activation: str = ACT_LEAKY_RELU,
-              slope: float = 0.01) -> torch.Tensor:
-    """Fused BN + activation with running statistics (segtpu ``fused_abn``
-    with ``training=False``)."""
+              mean: Optional[torch.Tensor] = None, var: Optional[torch.Tensor] = None,
+              training: bool = False, eps: float = 1e-5, activation: str = ACT_LEAKY_RELU,
+              slope: float = 0.01):
+    """Fused BN + activation (segtpu ``fused_abn``).
+
+    ``training=True``: batch statistics and the from-output backward; returns
+    ``(z, mean, var)`` so the caller can update its running statistics.
+    ``training=False``: the running ``mean``/``var``; returns ``z``."""
     if training:
-        raise NotImplementedError(
-            "training-mode fused ABN (batch statistics, from-output backward: "
-            "kernels B1/B3) arrives with the training slice of the port")
-    scale = gamma.float() * torch.rsqrt(var.float() + eps)
-    shift = beta.float() - mean.float() * scale
+        return FusedABNTrain.apply(x, gamma, beta, eps, activation, slope)
+    if mean is None or var is None:
+        raise ValueError("fused_abn(training=False) needs the running mean and var")
+    acc = _acc(x)
+    scale = gamma.to(acc) * torch.rsqrt(var.to(acc) + eps)
+    shift = beta.to(acc) - mean.to(acc) * scale
     return abn_norm_act(x, scale, shift, activation, slope)

@@ -51,9 +51,9 @@ GROUPS = (
 )
 
 
-def group_of(name: str) -> str:
+def group_of(name: str, groups=GROUPS) -> str:
     low = name.lower()
-    for frag, group in GROUPS:
+    for frag, group in groups:
         if frag.lower() in low:
             return group
     return "other elementwise / copies"

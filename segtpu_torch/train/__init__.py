@@ -1,1 +1,2 @@
-"""Predict step and reference-format checkpoints."""
+"""Train, eval and predict steps, optimizers and schedules, and
+reference-format checkpoints."""

@@ -1,11 +1,99 @@
-"""Inference step (counterpart of segtpu/train/state.py ``make_predict_step``)."""
+"""Train, eval and predict steps (counterpart of segtpu/train/state.py).
+
+The reference's inner loop (torch_train.py:176-214): forward, loss,
+``(batch_size * loss).backward()``, ``optimizer.step()``, the per-batch
+metrics and the gradient abs-max. segtpu compiles it into one jitted
+program; here it is one eager call whose logs stay tensors on the device,
+so the step never waits for the card. The caller reads them when it needs
+them.
+
+On CUDA the input is handed to the model in ``channels_last`` memory, the
+layout the model is kept in. ``bf16`` runs the model's forward under
+bfloat16 autocast. The model returns fp32 logits (float64 from a float64
+model), and the loss and metrics are taken on them outside autocast.
+
+Waiting for later slices: ``trainable_mask``, ``param_penalty`` and
+``augment_fn`` of segtpu's ``make_train_step``, and the PR-curve counts of
+its eval step.
+"""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
+
+from segtpu_torch.train.optim import set_learning_rate
+
+Logs = Dict[str, torch.Tensor]
+
+
+def _model_input(x: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cuda":
+        return x.contiguous(memory_format=torch.channels_last)
+    return x
+
+
+def grad_absmax(grads) -> torch.Tensor:
+    """Largest |g| over every gradient tensor: the reference's explosion
+    tripwire (torch_train.py:199-205), a few reductions on the device."""
+    grads = [g for g in grads if g is not None]
+    if not grads:
+        return torch.zeros(())
+    return torch.stack(torch._foreach_norm(grads, float("inf"))).max()
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn: Callable,
+                    metrics: Optional[Dict[str, Callable]] = None,
+                    bf16: bool = False) -> Callable[[torch.Tensor, torch.Tensor, float], Logs]:
+    """``step(x, y, lr) -> logs``: one training step of ``model`` in place.
+
+    ``x``: NCHW float32 images, ``y``: NCHW targets, both on the model's
+    device; ``lr``: this step's learning rate (a host float). The gradients
+    are those of ``batch_size * loss``, as the reference's. ``logs`` holds
+    ``loss``, ``grad_absmax`` and each metric, as 0-d tensors on the device;
+    the parameters' ``.grad`` keep this step's gradients."""
+    metrics = metrics or {}
+
+    def train_step(x: torch.Tensor, y: torch.Tensor, lr: float) -> Logs:
+        model.train()
+        x = _model_input(x)
+        set_learning_rate(optimizer, lr)
+        optimizer.zero_grad(set_to_none=True)
+        with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
+            logits = model(x)
+        loss = loss_fn(logits, y)
+        (loss * x.shape[0]).backward()
+        logs = {"loss": loss.detach(),
+                "grad_absmax": grad_absmax(p.grad for p in model.parameters())}
+        optimizer.step()
+        with torch.no_grad():
+            for name, fn in metrics.items():
+                logs[name] = fn(logits.detach(), y)
+        return logs
+
+    return train_step
+
+
+def make_eval_step(model: nn.Module, loss_fn: Callable,
+                   metrics: Optional[Dict[str, Callable]] = None
+                   ) -> Callable[[torch.Tensor, torch.Tensor], Logs]:
+    """``step(x, y) -> logs``: loss and metrics of ``model`` in eval mode,
+    with its running statistics (the reference's validate(),
+    torch_train.py:240-305). Logs are 0-d tensors on the device."""
+    metrics = metrics or {}
+
+    def eval_step(x: torch.Tensor, y: torch.Tensor) -> Logs:
+        model.eval()
+        with torch.inference_mode():
+            logits = model(_model_input(x))
+            logs = {"loss": loss_fn(logits, y)}
+            for name, fn in metrics.items():
+                logs[name] = fn(logits, y)
+        return logs
+
+    return eval_step
 
 
 def make_predict_step(model: nn.Module, bf16: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -13,15 +101,12 @@ def make_predict_step(model: nn.Module, bf16: bool = False) -> Callable[[torch.T
 
     ``x``: NCHW float32 on the model's device; the result is NCHW float32
     probabilities. ``bf16`` runs the model under bfloat16 autocast (the
-    submit CLI's ``--bf16``); the model's logits come back in fp32. On CUDA the
-    input is handed to the model in ``channels_last`` memory, the layout the
-    model is kept in."""
+    submit CLI's ``--bf16``)."""
     model.eval()
 
     def predict_step(x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            if x.device.type == "cuda":
-                x = x.contiguous(memory_format=torch.channels_last)
+            x = _model_input(x)
             with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
                 logits = model(x)
             return torch.sigmoid(logits.float())

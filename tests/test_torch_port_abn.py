@@ -80,15 +80,34 @@ def test_inplace_abn_eval_matches_segtpu(impl, activation):
 
 @pytest.mark.parametrize("module", [BatchNormTorch, InPlaceABN])
 def test_training_mode_raises_until_training_slice(module):
+    """Named for the guard that training mode raised before the training
+    slice landed. Training mode now normalises with the batch statistics
+    (per-channel mean 0, variance 1 before the affine) and moves the running
+    statistics towards them."""
     m = module(4).train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        m(torch.zeros(1, 4, 3, 3))
+    x = torch.randn(2, 4, 3, 3, generator=torch.Generator().manual_seed(0)) * 2.0 + 1.0
+    y = m(x)
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    if module is BatchNormTorch:  # identity affine, no activation
+        torch.testing.assert_close(y.mean((0, 2, 3)), torch.zeros(4), atol=1e-6, rtol=0)
+        torch.testing.assert_close(y.var((0, 2, 3), unbiased=False), torch.ones(4),
+                                   atol=1e-4, rtol=0)
+    torch.testing.assert_close(m.running_mean, 0.1 * x.mean((0, 2, 3)))
+    torch.testing.assert_close(m.running_var, 0.9 + 0.1 * x.var((0, 2, 3), unbiased=True))
 
 
 def test_fused_abn_training_raises():
-    z = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="B1/B3"):
-        abn.fused_abn(torch.zeros(1, 4, 2, 2), z + 1, z, mean=z, var=z + 1, training=True)
+    """Named for the guard that ``fused_abn(training=True)`` raised before
+    the training slice landed. Training mode now returns (z, batch mean,
+    batch var); eval mode without running statistics is what raises."""
+    x = torch.randn(2, 4, 3, 3, generator=torch.Generator().manual_seed(1))
+    g, b = torch.ones(4), torch.zeros(4)
+    z, mean, var = abn.fused_abn(x, g, b, training=True)
+    assert z.shape == x.shape
+    torch.testing.assert_close(mean, x.mean((0, 2, 3)))
+    torch.testing.assert_close(var, x.var((0, 2, 3), unbiased=False))
+    with pytest.raises(ValueError, match="running"):
+        abn.fused_abn(x, g, b, training=False)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

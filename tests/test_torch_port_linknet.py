@@ -103,7 +103,9 @@ PORT_MODULES = [
     "segtpu_torch.train.checkpoint", "segtpu_torch.train.state", "segtpu_torch.augment",
     "segtpu_torch.augment.host", "segtpu_torch.data.inria", "segtpu_torch.utils",
     "segtpu_torch.tiles", "segtpu_torch.inference", "segtpu_torch.submit_cli",
-    "segtpu_torch.profile_serve",
+    "segtpu_torch.profile_serve", "segtpu_torch.ops.losses", "segtpu_torch.ops.metrics",
+    "segtpu_torch.train.optim", "segtpu_torch.data.shapes", "segtpu_torch.bench",
+    "segtpu_torch.profile_train",
 ]
 
 
