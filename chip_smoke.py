@@ -5,15 +5,26 @@
 Phases, one JSON line each; any failure exits non-zero:
 
   device       the card (nvidia-smi name and power limit), torch and CUDA versions
-  build        nvcc build of every CUDA kernel of segtpu_torch/csrc, in seconds
+  build        nvcc build of every CUDA kernel of segtpu_torch/csrc, in seconds,
+               and each kernel's registers and spills from ptxas -v
   kernel_b1    the channel-sums kernel against its plain PyTorch version
                (fp32/bf16, channels_last/NCHW/[M, C], single and pair forms, a
                ragged M, C = 37, then every BatchNorm and InPlaceABN input shape
                of one LinkNet34 training step at batch 16, patch 512), with its
-               time, bytes, bound and torch.var_mean's time at the largest shape
+               time, bytes, bound and torch.var_mean's time at the largest
+               shape; its time cold in L2 at each of the step's distinct
+               shapes and forms, and a model of its time per step: each of
+               those times its calls per step (84 calls), against their summed
+               bound (var_mean's sum over the 48 single-form calls beside it);
+               and two calls giving the same bits at the largest and the
+               smallest step shape. Times are device times
+               (segtpu_torch.profile_reduce.cuda_ms: a spin kernel keeps the
+               device busy while the host launches)
   kernel_b3    the from-output ABN backward kernel against its plain version
                (the same cases, three activations, then the twelve InPlaceABN
-               shapes of the step), with its time, bytes and bound
+               shapes of the step), with its time, bytes and bound, the same
+               per-shape times and per-step model over its 12 calls, and the
+               repeat check
   kernel_b2    the fused BN+activation kernel against its plain PyTorch version
                (fp32/bf16, channels_last/NCHW, three activations, a ragged
                tail, and the twelve decoder shapes of a LinkNet34 pass at tile
@@ -33,6 +44,11 @@ Phases, one JSON line each; any failure exits non-zero:
                DeviceShapes batch, 3 warm steps then 20 timed ones; images/s,
                ms/step, peak memory, first and last loss, and the launches of
                B1, B2 and B3 per step against the layer count
+  counters     after training, every cached counter buffer of the B1/B3
+               reduction holds zeros
+  one_launch   a torch.profiler count: one call of B1 (either form) or B3
+               runs exactly one device kernel, at the step's largest and
+               smallest shapes (last: the profiler slows later launches)
 
 The kernel counts are set to 0 just before each main path (serve, train) and
 read just after it. Then the kernel table line, the nvidia-smi line, and last
@@ -44,10 +60,13 @@ layer sees activations of order one.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -64,6 +83,7 @@ from segtpu_torch.ops import kernels
 from segtpu_torch.ops.abn import abn_bwd_sums_plain, abn_norm_act_plain, channel_sums_plain
 from segtpu_torch.ops.losses import get_loss
 from segtpu_torch.ops.metrics import default_metrics
+from segtpu_torch.profile_reduce import L2_FLUSH_BYTES, cuda_ms, step_norm_shapes
 from segtpu_torch.train.checkpoint import load_snapshot, save_snapshot
 from segtpu_torch.train.optim import get_optimizer
 from segtpu_torch.train.state import make_predict_step, make_train_step
@@ -98,22 +118,6 @@ def card_rates(name: str):
         if key in name:
             return bw, flops, key
     return 3.35e12, 67e12, "unknown card: H100 SXM rates assumed"
-
-
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` runs, each timed with its
-    own pair of CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
 
 
 def decoder_abn_shapes(batch: int, patch: int):
@@ -152,16 +156,54 @@ def phase_device():
     return name, smi
 
 
+def _short_kernel_name(mangled: str, demangled: str) -> str:
+    """``rows_kernel<__nv_bfloat16, 8, true, 2, AbnBwdOp<1> >`` from the
+    demangled signature, or the mangled name where c++filt is missing."""
+    if not demangled or demangled == mangled:
+        return mangled
+    name = demangled.replace("(anonymous namespace)::", "").replace("chred::", "")
+    return re.sub(r"^void ", "", name).split("(", 1)[0]
+
+
+def ptxas_report(log: str):
+    """One entry per kernel of an ``nvcc -Xptxas -v`` log: its name,
+    registers and spill bytes."""
+    entries, current = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = {"mangled": m.group(1), "spill_stores": 0, "spill_loads": 0}
+            entries.append(current)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current is not None:
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+    if entries and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(e["mangled"] for e in entries),
+                             capture_output=True, text=True, timeout=60).stdout.splitlines()
+        for e, d in zip(entries, out):
+            e["name"] = _short_kernel_name(e["mangled"], d.strip())
+    for e in entries:
+        e.setdefault("name", e["mangled"])
+        del e["mangled"]
+    return entries
+
+
 def phase_build():
     t0 = time.perf_counter()
     paths = kernels.build()
     seconds = time.perf_counter() - t0
     ptxas = {}
     for name in paths:
-        log = (kernels.BUILD_DIR / f"{name}.log")
-        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines() if "Used" in ln or "spill" in ln][:8] \
-            if log.exists() else []
+        log = kernels.BUILD_DIR / f"{name}.log"
+        ptxas[name] = ptxas_report(log.read_text()) if log.exists() else []
+        if not ptxas[name]:
+            raise AssertionError(f"build: no ptxas report for {name}")
     emit("build", seconds=seconds, libraries=[str(p.name) for p in paths.values()], ptxas=ptxas)
+    return ptxas
 
 
 def _check(x, scale, shift, act, tol):
@@ -203,32 +245,6 @@ def timing_entry(nbytes: int, ops: int, card: str, **times) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations", **times)
 
 
-def step_norm_shapes():
-    """Input shapes of the 36 BatchNorm and 12 InPlaceABN layers of one
-    LinkNet34 training step at batch TRAIN_BATCH, patch PATCH, in bf16
-    channels_last, recorded by hooks on one forward pass."""
-    model = seeded_model("cuda")
-    shapes = {"bn": [], "abn": []}
-
-    def hook(kind):
-        return lambda mod, inp: shapes[kind].append(tuple(inp[0].shape))
-
-    handles = [m.register_forward_pre_hook(hook("bn" if isinstance(m, BatchNormTorch) else "abn"))
-               for m in model.modules() if isinstance(m, (BatchNormTorch, InPlaceABN))]
-    x = torch.zeros(TRAIN_BATCH, 3, PATCH, PATCH, device="cuda").contiguous(
-        memory_format=torch.channels_last)
-    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
-        model(x)
-    for h in handles:
-        h.remove()
-    if (len(shapes["bn"]), len(shapes["abn"])) != (36, 12):
-        raise AssertionError(f"expected 36 BN and 12 ABN layers, found {len(shapes['bn'])} "
-                             f"and {len(shapes['abn'])}")
-    del model
-    torch.cuda.empty_cache()
-    return shapes
-
-
 def in_layout(x, layout):
     """``x`` as channels_last, nchw (contiguous; a 2-D tensor is [M, C]) or
     unaligned (contiguous, one element off a 16-byte boundary, so the
@@ -259,6 +275,94 @@ def _check_sums(name, got, want, magnitude, what):
         worst_abs = max(worst_abs, err.max().item())
         worst_rel = max(worst_rel, (err / m.double().clamp_min(1e-30)).max().item())
     return worst_abs, worst_rel
+
+
+def same_bits(fn) -> bool:
+    """Two calls of ``fn`` give the same bits in every output."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(first, second))
+
+
+def device_kernels(fn):
+    """Names of the device kernels that one call of ``fn`` runs, from
+    torch.profiler. A call beforehand loads the library and allocates the
+    cached counters. Inside the profile the call sits between two marker
+    kernels (a one-element add), which must be the first and the last
+    device events: the names returned are those between them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    marker = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        marker.add_(1)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+        marker.add_(1)
+        torch.cuda.synchronize()
+    ran = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
+                 key=lambda e: e.time_range.start)
+    names = [e.name for e in ran]
+    if len(names) < 2 or "elementwise" not in names[0] or "elementwise" not in names[-1]:
+        raise AssertionError(f"the profile does not hold both marker kernels: {names}")
+    return names[1:-1]
+
+
+def check_repeat(what, fns):
+    """Each of ``fns`` (label -> call) gives the same bits twice."""
+    for label, fn in fns.items():
+        if not same_bits(fn):
+            raise AssertionError(f"{what} {label}: two calls on the same input differ")
+    return sorted(fns)
+
+
+def check_one_launch(what, fns):
+    """Each of ``fns`` (label -> call) runs exactly one device kernel.
+    Returns the kernel names by label."""
+    names = {}
+    for label, fn in fns.items():
+        ran = device_kernels(fn)
+        if len(ran) != 1:
+            raise AssertionError(f"{what} {label}: one call ran {len(ran)} device kernels: {ran}")
+        names[label] = ran[0][:120]
+    return names
+
+
+def step_sum(card, calls, make, time_kernel, time_plain, time_library, bytes_of, ops_of, flush):
+    """A model of one kernel's time over the calls of one training step, not
+    a measurement in the step (that is ``profile_train``'s). ``calls``:
+    Counter of (shape, form) -> calls per step, from hooks on the layers;
+    ``make(shape, form)`` gives the inputs of ``time_*(inputs, form)``. Each
+    distinct call is timed once, cold in L2 (median of 20), and multiplied
+    by its calls per step. Returns the sums and the per-shape rows."""
+    rows = []
+    for (shape, form), count in sorted(calls.items()):
+        inputs = make(shape, form)
+        n, c = int(np.prod(shape)), shape[1]
+        lib = time_library(inputs, form)
+        rows.append(dict(shape=list(shape), form=form, calls=count, **timing_entry(
+            bytes_of(n, c, form), ops_of(n, form), card,
+            ms=cuda_ms(lambda: time_kernel(inputs, form), flush=flush),
+            plain_ms=cuda_ms(lambda: time_plain(inputs, form), flush=flush),
+            library_ms=None if lib is None else cuda_ms(lib, flush=flush))))
+        del inputs
+    total = dict(calls_modelled=sum(r["calls"] for r in rows))
+    for key, name in (("ms", "ms_modelled_cold"), ("plain_ms", "plain_ms_modelled_cold"),
+                      ("bound_ms", "bound_ms_modelled"), ("bytes", "bytes_modelled")):
+        total[name] = sum(r["calls"] * r[key] for r in rows)
+    with_lib = [r for r in rows if r["library_ms"] is not None]
+    if with_lib:
+        total["library_ms_modelled_cold"] = sum(r["calls"] * r["library_ms"] for r in with_lib)
+        total["library_calls_modelled"] = sum(r["calls"] for r in with_lib)
+        total["ms_modelled_cold_of_library_calls"] = sum(r["calls"] * r["ms"] for r in with_lib)
+    else:
+        total["library_ms_modelled_cold"] = None
+    return total, rows
 
 
 def _b1_case(a, b):
@@ -294,6 +398,7 @@ def phase_kernel_b1(card: str, norm_shapes):
             max_err, max_rel, n_cases = max(max_err, err), max(max_rel, rel), n_cases + 1
 
     big = max(unique, key=lambda s: int(np.prod(s)))
+    small = min(unique, key=lambda s: int(np.prod(s)))
     a = cuda_input(big, torch.bfloat16, "channels_last", g)
     b = cuda_input(big, torch.bfloat16, "channels_last", g, 0.0, 1.0)
     n, c = a.numel(), big[1]
@@ -306,14 +411,55 @@ def phase_kernel_b1(card: str, norm_shapes):
         2 * n * 2 + 2 * 4 * c, 3 * n, card,
         ms=cuda_ms(lambda: kernels.channel_sums_cuda(a, b)),
         plain_ms=cuda_ms(lambda: channel_sums_plain(a, b)), library_ms=None)
+    sa = cuda_input(small, torch.bfloat16, "channels_last", g)
+    sb = cuda_input(small, torch.bfloat16, "channels_last", g, 0.0, 1.0)
+    repeat = check_repeat("channel_sums", {
+        "largest single": lambda: kernels.channel_sums_cuda(a),
+        "largest pair": lambda: kernels.channel_sums_cuda(a, b),
+        "smallest single": lambda: kernels.channel_sums_cuda(sa),
+        "smallest pair": lambda: kernels.channel_sums_cuda(sa, sb)})
+    del a, b, sa, sb
+
+    calls = Counter()
+    for shape in norm_shapes["bn"]:
+        calls[(shape, "single")] += 1  # forward statistics
+        calls[(shape, "pair")] += 1    # backward (sum g, sum g*x)
+    for shape in norm_shapes["abn"]:
+        calls[(shape, "single")] += 1
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def make(shape, form):
+        x = cuda_input(shape, torch.bfloat16, "channels_last", g)
+        return x, (cuda_input(shape, torch.bfloat16, "channels_last", g, 0.0, 1.0)
+                   if form == "pair" else None)
+
+    per_step, per_shape = step_sum(
+        card, calls, make,
+        lambda xy, form: kernels.channel_sums_cuda(*xy),
+        lambda xy, form: channel_sums_plain(*xy),
+        lambda xy, form: None if form == "pair" else (
+            lambda: torch.var_mean(xy[0], dim=(0, 2, 3), correction=0)),
+        lambda n, c, form: (2 if form == "pair" else 1) * n * 2 + 2 * 4 * c,
+        lambda n, form: 3 * n, flush)
+    del flush
+    if per_step["calls_modelled"] != STEP_LAUNCHES["channel_sums"]:
+        raise AssertionError(f"kernel_b1: {per_step['calls_modelled']} calls per step, expected "
+                             f"{STEP_LAUNCHES['channel_sums']}")
+    beats = {"x".join(map(str, r["shape"])): r["ms"] < r["library_ms"]
+             for r in per_shape if r["form"] == "single"}
     emit("kernel_b1", cases=n_cases, step_shapes=len(unique), max_abs_err=max_err,
          max_err_over_sum_abs=max_rel,
          tolerance=f"per channel |err| <= {RTOL_SUM} * sum|term| + 1e-6",
          largest=dict(shape=list(big), dtype="bfloat16", layout="channels_last",
                       single=single, pair=pair),
+         per_step=per_step, per_shape=per_shape, beats_var_mean_single=beats,
+         repeat_bit_identical=repeat,
+         timing="device time (a spin kernel ahead of each run); largest: warm medians of "
+                "20; per_shape: medians of 20 with L2 flushed before each run; per_step: "
+                "each per_shape time times its calls per step",
          library="torch.var_mean(x, dim=(0, 2, 3), correction=0) for the single form; "
                  "none for the pair form")
-    return dict(single, shape=list(big)), max_err
+    return dict(single, shape=list(big), per_step=per_step), max_err
 
 
 def _b3_case(z, g, gamma, beta, act):
@@ -361,20 +507,43 @@ def phase_kernel_b3(card: str, norm_shapes):
         max_err, max_rel, n_cases = max(max_err, err), max(max_rel, rel), n_cases + 1
 
     big = max(unique, key=lambda s: int(np.prod(s)))
+    small = min(unique, key=lambda s: int(np.prod(s)))
     z, grad, gamma, beta = _abn_output(big, torch.bfloat16, "channels_last", "leaky_relu", g)
     n, c = z.numel(), big[1]
+
+    def b3_bytes(n, c, form):
+        return 2 * n * 2 + 2 * 4 * c + 2 * 4 * c  # z, g read; gamma, beta read; two sums written
+
     largest = timing_entry(
-        2 * n * 2 + 2 * 4 * c + 2 * 4 * c, 8 * n, card,
+        b3_bytes(n, c, None), 8 * n, card,
         ms=cuda_ms(lambda: kernels.abn_bwd_sums_cuda(z, grad, gamma, beta, "leaky_relu", SLOPE)),
         plain_ms=cuda_ms(lambda: abn_bwd_sums_plain(z, grad, gamma, beta, "leaky_relu", SLOPE)),
         library_ms=None)
+    sz, sg, sgamma, sbeta = _abn_output(small, torch.bfloat16, "channels_last", "leaky_relu", g)
+    repeat = check_repeat("abn_bwd_sums", {
+        "largest": lambda: kernels.abn_bwd_sums_cuda(z, grad, gamma, beta, "leaky_relu", SLOPE),
+        "smallest": lambda: kernels.abn_bwd_sums_cuda(sz, sg, sgamma, sbeta, "leaky_relu", SLOPE)})
+    del z, grad, sz, sg
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    per_step, per_shape = step_sum(
+        card, Counter((shape, "leaky_relu") for shape in norm_shapes["abn"]),
+        lambda shape, act: _abn_output(shape, torch.bfloat16, "channels_last", act, g),
+        lambda args, act: kernels.abn_bwd_sums_cuda(*args, act, SLOPE),
+        lambda args, act: abn_bwd_sums_plain(*args, act, SLOPE),
+        lambda args, act: None, b3_bytes, lambda n, act: 8 * n, flush)
+    del flush
+    if per_step["calls_modelled"] != STEP_LAUNCHES["abn_bwd"]:
+        raise AssertionError(f"kernel_b3: {per_step['calls_modelled']} calls per step, expected "
+                             f"{STEP_LAUNCHES['abn_bwd']}")
     emit("kernel_b3", cases=n_cases, step_shapes=len(unique), max_abs_err=max_err,
          max_err_over_sum_abs=max_rel,
          tolerance=f"per channel |err| <= {RTOL_SUM} * sum|term| + 1e-6",
          largest=dict(largest, shape=list(big), dtype="bfloat16", layout="channels_last",
                       activation="leaky_relu"),
+         per_step=per_step, per_shape=per_shape, repeat_bit_identical=repeat,
          library="none: no single PyTorch call computes these sums")
-    return dict(largest, shape=list(big)), max_err
+    return dict(largest, shape=list(big), per_step=per_step), max_err
 
 
 def phase_kernel_b2(card: str):
@@ -666,6 +835,29 @@ def phase_train():
     return launches
 
 
+def phase_one_launch(norm_shapes):
+    """One call of B1 (both forms) and of B3 runs exactly one device kernel,
+    at the largest and the smallest shape of the step, by torch.profiler.
+    Last of the phases that use the card: a profiler session leaves CUPTI
+    attached to the process, which slows every later launch."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    unique = sorted(set(norm_shapes["bn"] + norm_shapes["abn"]), key=lambda s: int(np.prod(s)))
+    abn_unique = sorted(set(norm_shapes["abn"]), key=lambda s: int(np.prod(s)))
+    fns = {}
+    for label, shape in (("smallest", unique[0]), ("largest", unique[-1])):
+        a = cuda_input(shape, torch.bfloat16, "channels_last", g)
+        b = cuda_input(shape, torch.bfloat16, "channels_last", g, 0.0, 1.0)
+        fns[f"channel_sums {label} single"] = lambda a=a: kernels.channel_sums_cuda(a)
+        fns[f"channel_sums {label} pair"] = lambda a=a, b=b: kernels.channel_sums_cuda(a, b)
+    for label, shape in (("smallest", abn_unique[0]), ("largest", abn_unique[-1])):
+        z, grad, gamma, beta = _abn_output(shape, torch.bfloat16, "channels_last", "leaky_relu", g)
+        fns[f"abn_bwd {label}"] = (lambda z=z, grad=grad, gamma=gamma, beta=beta:
+                                   kernels.abn_bwd_sums_cuda(z, grad, gamma, beta, "leaky_relu",
+                                                             SLOPE))
+    names = check_one_launch("reduction", fns)
+    emit("one_launch", device_kernels_per_call={k: 1 for k in names}, kernels=names, ok=True)
+
+
 def kernel_entry(kid, name, replaces, launches, max_err, timing, **extra):
     return {"id": kid, "name": name, "checked": True, "route": "cuda",
             "source": f"segtpu_torch/csrc/{kernels.SOURCES[name]}", "replaces": replaces,
@@ -675,13 +867,23 @@ def kernel_entry(kid, name, replaces, launches, max_err, timing, **extra):
             "shape": timing["shape"], "dtype": "bfloat16", "layout": "channels_last", **extra}
 
 
+def _per_step_entry(per_step):
+    """The modelled per-step sums for the kernel table (see :func:`step_sum`):
+    calls x cold time against calls x bound."""
+    keys = ("calls_modelled", "ms_modelled_cold", "bound_ms_modelled", "plain_ms_modelled_cold",
+            "library_ms_modelled_cold", "library_calls_modelled",
+            "ms_modelled_cold_of_library_calls")
+    return {k: per_step[k] for k in keys if k in per_step}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
         return 2
     card, smi = phase_device()
     phase_build()
-    norm_shapes = step_norm_shapes()
+    norm_shapes = step_norm_shapes(TRAIN_BATCH, PATCH)
+    torch.cuda.empty_cache()
     b1, b1_err = phase_kernel_b1(card, norm_shapes)
     b3, b3_err = phase_kernel_b3(card, norm_shapes)
     b2, b2_err = phase_kernel_b2(card)
@@ -690,19 +892,27 @@ def main() -> int:
     serve = phase_serve(state_dict)
     phase_train_parity()
     train = phase_train()
+    counters = kernels.counter_buffers()
+    if not counters or any(int(buf.count_nonzero()) for buf in counters):
+        raise AssertionError("the B1/B3 counter buffers are not all zero after training: "
+                             f"{[int(buf.count_nonzero()) for buf in counters]}")
+    emit("counters", buffers=len(counters), ints=sum(buf.numel() for buf in counters),
+         nonzero=0, ok=True)
+    phase_one_launch(norm_shapes)
     for name, count in (("abn_norm_act", serve["abn_norm_act"]), ("channel_sums", train["channel_sums"]),
                         ("abn_norm_act", train["abn_norm_act"]), ("abn_bwd", train["abn_bwd"])):
         if count == 0:
             raise AssertionError(f"a main path never launched the {name} kernel")
     print(json.dumps({"kernels": [
         kernel_entry("B1", "channel_sums", "segtpu/ops/bn_alt.py:100", train["channel_sums"],
-                     b1_err, b1, form="single (sum x, sum x^2); library: torch.var_mean"),
+                     b1_err, b1, form="single (sum x, sum x^2); library: torch.var_mean",
+                     per_step=_per_step_entry(b1["per_step"])),
         kernel_entry("B2", "abn_norm_act", "segtpu/ops/bn_alt.py:181",
                      serve["abn_norm_act"] + train["abn_norm_act"], b2_err, dict(b2, library_ms=None),
                      launches_by_path={"serve": serve["abn_norm_act"],
                                        "train": train["abn_norm_act"]}),
         kernel_entry("B3", "abn_bwd", "segtpu/ops/bn_alt.py:216", train["abn_bwd"], b3_err, b3,
-                     activation="leaky_relu"),
+                     activation="leaky_relu", per_step=_per_step_entry(b3["per_step"])),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -7,16 +7,27 @@
 // BatchNorm statistics; with b present it is the BatchNorm backward's
 // (sum g, sum g*x).
 //
-// What bounds it: bytes (each input element read once, two or three fp32
-// operations each). The design, shared with B3, is the two-pass reduction of
-// channel_reduce.cuh: fp32 partials per block into a scratch buffer that the
-// caller allocates, then a fixed-order combine. No atomics: the result is the
-// same from run to run on a given card.
+// What bounds it: bytes (each input element read once, two or three
+// operations each). The design is the one-launch reduction of
+// channel_reduce.cuh, shared with B3, which answers the four limits of the
+// two-launch design it replaces: one launch per call (the partials are
+// combined on chip, through distributed shared memory in thread block
+// clusters and then by the last cluster leader to arrive); 4 independent
+// 16-byte loads in flight per thread for one input, 2 per input for two;
+// no per-element division (B1 has none); and no host query per call (the
+// plan, the SM count and the zeroed counter buffer are cached by the Python
+// wrapper, segtpu_torch.ops.kernels). No floating-point atomics: the same
+// bits from run to run on one card.
+//
+// fp32 inputs are summed in fp64 (products exact), bf16 inputs in fp32: the
+// BatchNorm backward takes sum g*x - mean * sum g, a difference that
+// cancels, so the sums of an fp32 input are carried exactly enough to round
+// once.
 //
 // Inputs: fp32 or bf16, channels_last NCHW / [M, C] (inner = 1) or
 // contiguous NCHW (inner = H*W); a and b share dtype and layout.
-// Plain C interface, loaded with ctypes: the launcher returns
-// cudaGetLastError() and the Python wrapper raises when it is not 0.
+// Plain C interface, loaded with ctypes: the launcher returns a cudaError_t
+// and the Python wrapper raises when it is not 0.
 
 #include "channel_reduce.cuh"
 
@@ -25,45 +36,39 @@ namespace {
 struct SumsOp {
   struct Param {};
   __device__ __forceinline__ Param param(int64_t) const { return {}; }
-  __device__ __forceinline__ void apply(const Param&, float a, float b, float& u,
-                                        float& v) const {
+  template <typename A>
+  __device__ __forceinline__ void apply(const Param&, float a, float b, A& u, A& v) const {
     u = a;
-    v = a * b;
+    v = static_cast<A>(a) * static_cast<A>(b);  // exact in fp64
   }
+  template <typename A>
+  __device__ __forceinline__ void finish(int64_t, A&, A&) const {}
 };
 
 template <typename T>
-int dispatch(const void* a, const void* b, long long numel, long long inner, long long channels,
-             bool aligned, float* scratch, long long max_parts, float* out_s, float* out_q,
+int dispatch(const void* a, const void* b, const chred::Plan& p, const chred::Out& out,
              cudaStream_t stream) {
-  if (b != nullptr) {
-    return chred::launch_reduce<T, true>(a, b, numel, inner, channels, aligned, SumsOp{}, scratch,
-                                         max_parts, out_s, out_q, stream);
-  }
-  return chred::launch_reduce<T, false>(a, nullptr, numel, inner, channels, aligned, SumsOp{},
-                                        scratch, max_parts, out_s, out_q, stream);
+  if (b != nullptr) return chred::launch_reduce<T, true>(a, b, SumsOp{}, p, out, stream);
+  return chred::launch_reduce<T, false>(a, nullptr, SumsOp{}, p, out, stream);
 }
 
 }  // namespace
 
-// b may be null (single form). dtype: 0 = float32, 1 = bfloat16. scratch:
-// 2 * max_parts * channels floats. aligned: a (and b) are 16-byte aligned.
-// out_s, out_q: [channels] float32. Returns a cudaError_t.
+// b may be null (single form). out_s, out_q: [channels] float32. part:
+// [2, clusters, channels] sums (fp64 for fp32 inputs, fp32 for bf16) and
+// counters: [tiles] int32 at zero, or null when the plan has one cluster
+// per tile. plan: the ReducePlan fields
+// as int64. dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
 extern "C" int channel_sums_launch(const void* a, const void* b, void* out_s, void* out_q,
-                                   void* scratch, long long max_parts, long long numel,
-                                   long long inner, long long channels, int dtype, int aligned,
+                                   void* part, void* counters, const long long* plan, int dtype,
                                    void* stream) {
-  if (numel <= 0 || inner <= 0 || channels <= 0 || max_parts <= 0 || max_parts > 65535 ||
-      numel % (inner * channels) != 0 || (dtype != 0 && dtype != 1)) {
+  if (a == nullptr || plan == nullptr || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  float* s = static_cast<float*>(out_s);
-  float* q = static_cast<float*>(out_q);
-  float* work = static_cast<float*>(scratch);
+  const chred::Plan p = chred::read_plan(plan);
+  const chred::Out out{static_cast<float*>(out_s), static_cast<float*>(out_q),
+                       part, static_cast<int*>(counters)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return dispatch<float>(a, b, numel, inner, channels, aligned != 0, work, max_parts, s, q, st);
-  }
-  return dispatch<__nv_bfloat16>(a, b, numel, inner, channels, aligned != 0, work, max_parts, s,
-                                 q, st);
+  if (dtype == 0) return dispatch<float>(a, b, p, out, st);
+  return dispatch<__nv_bfloat16>(a, b, p, out, st);
 }

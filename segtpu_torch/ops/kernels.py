@@ -17,20 +17,28 @@ launched, so a run can show that its main path went through the kernel.
 
 Kernels: B1 ``channel_sums`` (per-channel fp32 (sum a, sum a*b)), B2
 ``abn_norm_act`` (per-channel affine + activation) and B3 ``abn_bwd``
-(from-output ABN backward sums). B1 and B3 are two-pass reductions: the
-wrapper allocates their fp32 partials, ``[2, 8 * SMs, C]``, with
-``torch.empty``. Their plain PyTorch versions, and the per-device dispatch,
-are in :mod:`segtpu_torch.ops.abn`.
+(from-output ABN backward sums). B1 and B3 share the one-launch reduction of
+``csrc/channel_reduce.cuh``. Its launch plan is computed here
+(:func:`reduce_plan`, cached per shape, dtype, layout, alignment and SM
+count) and checked by the launcher; the SM count is read once per device,
+and the int32 counters of the reduction's second level are allocated zeroed
+once per (device, stream) and left at zero by every launch. The scratch of
+that level, ``[2, clusters, C]`` sums (fp64 for fp32 inputs, fp32 for bf16),
+is sized from the plan and allocated only when a channel tile spans more
+than one cluster. The plain PyTorch
+versions, and the per-device dispatch, are in :mod:`segtpu_torch.ops.abn`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -44,11 +52,10 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 # argtypes of each ``<name>_launch``: every pointer and the stream c_void_p,
 # every size c_longlong.
 _ARGTYPES = {
-    "channel_sums": [_P] * 5 + [_LL] * 4 + [_I, _I, _P],
+    "channel_sums": [_P] * 7 + [_I, _P],
     "abn_norm_act": [_P] * 4 + [_LL] * 3 + [_I, _I, _F, _I, _P],
-    "abn_bwd": [_P] * 7 + [_LL] * 4 + [_I, _I, _F, _I, _P],
+    "abn_bwd": [_P] * 9 + [_I, _I, _F, _P],
 }
-_PARTS_PER_SM = 8  # pass-1 partial rows of B1/B3 per SM (channel_reduce.cuh kBlocksPerSM)
 
 _ACTIVATIONS = {"none": 0, "leaky_relu": 1, "elu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -204,8 +211,203 @@ def _check_reduce_input(name: str, a: torch.Tensor, b: Optional[torch.Tensor]) -
     return inner
 
 
-def _max_parts(device: torch.device) -> int:
-    return _PARTS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
+# ---------------------------------------------------------------------------
+# B1 and B3: the launch plan of csrc/channel_reduce.cuh
+# ---------------------------------------------------------------------------
+
+REDUCE_THREADS = 256      # threads per block (kThreads)
+REDUCE_MAX_WIDTH = 256    # channels per tile that the shared arrays hold (kMaxWidth)
+REDUCE_MAX_CLUSTER = 8    # the portable cluster size (kMaxCluster)
+REDUCE_MAX_LANES = 32     # threads per channel in the second level (kMaxLanes)
+REDUCE_BLOCKS_PER_SM = 2  # grid target, chosen by measurement (PERF.md §6)
+MAX_GRID = 2**31 - 1      # blocks of a one-dimensional grid
+
+
+@dataclasses.dataclass(frozen=True)
+class ReducePlan:
+    """How one B1/B3 call is cut into blocks; the fields, in order, are those
+    of the C struct ``chred::Plan``.
+
+    ``rows_layout``: rows of C channels (inner == 1), else NCHW planes. A
+    tile of ``width`` channels (one channel for planes; ``tx`` threads
+    across it, ``vec`` elements per load) is covered by ``cluster *
+    clusters`` blocks, block k taking rows (or the channel's vectors)
+    ``[k * span, (k + 1) * span)`` of its ``extent``; a block's threads take
+    ``step`` of them per loop trip, ``unroll`` loads in flight per input.
+    ``acc_bytes``: the type the sums are carried in, fp64 (8) for fp32
+    inputs and fp32 (4) for bf16."""
+
+    rows_layout: bool
+    vec: int
+    tx: int
+    width: int
+    tiles: int
+    extent: int
+    step: int
+    unroll: int
+    span: int
+    cluster: int
+    clusters: int
+    channels: int
+    inner: int
+    acc_bytes: int
+
+    @property
+    def blocks_per_tile(self) -> int:
+        return self.cluster * self.clusters
+
+    @property
+    def grid(self) -> int:
+        return self.tiles * self.blocks_per_tile
+
+    @property
+    def scratch_bytes(self) -> int:
+        """Bytes of the second level's scratch, ``[2, clusters, C]`` sums; 0
+        with one cluster per tile."""
+        return 2 * self.clusters * self.channels * self.acc_bytes if self.clusters > 1 else 0
+
+    @property
+    def counters(self) -> int:
+        """int32 counters the second level needs (one per tile); 0 with one
+        cluster per tile."""
+        return self.tiles if self.clusters > 1 else 0
+
+    @functools.cached_property
+    def packed(self):
+        """The fields as the int64 array that the C launchers read."""
+        values = [int(getattr(self, f.name)) for f in dataclasses.fields(self)]
+        return (ctypes.c_longlong * len(values))(*values)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def reduce_plan(shape: Tuple[int, ...], dtype: torch.dtype, inner: int, aligned: bool,
+                sms: int, pair: bool) -> ReducePlan:
+    """The launch plan of one B1/B3 call.
+
+    ``shape``: the input's shape, channel dim 1; ``inner``: the stride
+    between neighbouring channels (:func:`channel_inner`: 1 for
+    channels_last or [M, C], H*W for contiguous NCHW); ``aligned``: every
+    operand starts on a 16-byte boundary; ``sms``: the card's SM count;
+    ``pair``: two inputs. Each thread keeps 4 loads in flight for one input
+    and 2 per input for two (64 bytes a thread either way with 16-byte
+    loads).
+
+    The grid aims at REDUCE_BLOCKS_PER_SM blocks per SM, at least one loop
+    trip each, in clusters of up to REDUCE_MAX_CLUSTER blocks per tile; the
+    rows or vectors are shared out evenly in whole trips, and only the last
+    cluster of a tile may hold empty blocks. The plan depends on its
+    arguments alone, so the kernel adds in the same order, to the same bits,
+    on every call."""
+    shape = tuple(int(s) for s in shape)
+    if dtype not in _DTYPES:
+        raise TypeError(f"the reduction takes float32 or bfloat16, got {dtype}")
+    if len(shape) < 2 or shape[1] <= 0 or inner <= 0:
+        raise ValueError(f"no reduction plan for shape {shape} with inner {inner}")
+    channels, numel = shape[1], 1
+    for d in shape:
+        numel *= d
+    if numel <= 0 or numel % (channels * inner) != 0:
+        raise ValueError(f"no reduction plan for shape {shape} with inner {inner}")
+    unroll = 2 if pair else 4
+    full_vec = 16 // dtype.itemsize
+    if inner == 1:
+        vec = full_vec if aligned and channels % full_vec == 0 else 1
+        tx = 1
+        while tx < 32 and tx < channels // vec:
+            tx *= 2
+        width, tiles = tx * vec, _cdiv(channels // vec, tx)
+        extent = numel // channels
+        step = (REDUCE_THREADS // tx) * unroll
+    else:
+        vec = full_vec if aligned and inner % full_vec == 0 else 1
+        tx, width, tiles = 1, 1, channels
+        extent = numel // channels // vec
+        step = REDUCE_THREADS * unroll
+        if extent + step >= 2**31:  # the planes kernel indexes a channel in 32 bits
+            raise ValueError(f"shape {shape}: a channel of {extent} vectors is too long "
+                             "for the NCHW kernel; use channels_last")
+    blocks = max(1, min(_cdiv(REDUCE_BLOCKS_PER_SM * sms, tiles), _cdiv(extent, step)))
+    cluster = min(REDUCE_MAX_CLUSTER, blocks)
+    span = _cdiv(_cdiv(extent, cluster * _cdiv(blocks, cluster)), step) * step
+    clusters = _cdiv(_cdiv(extent, span), cluster)
+    plan = ReducePlan(inner == 1, vec, tx, width, tiles, extent, step, unroll, span, cluster,
+                      clusters, channels, inner, 8 if dtype == torch.float32 else 4)
+    if plan.grid > MAX_GRID:
+        raise ValueError(f"shape {shape} needs {plan.grid} blocks, more than a grid holds")
+    return plan
+
+
+_sm_counts: Dict[int, int] = {}
+_counter_buffers: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device, read once per device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    n = _sm_counts.get(index)
+    if n is None:
+        n = _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters for the reductions launched on
+    ``stream``: allocated once per (device, stream), and anew, larger, when
+    a plan needs more. Every launch leaves them at zero."""
+    key = (device.index, stream)
+    buf = _counter_buffers.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counter_buffers[key] = buf
+    return buf
+
+
+def counter_buffers() -> List[torch.Tensor]:
+    """Every cached counter buffer; between launches they hold zeros."""
+    return list(_counter_buffers.values())
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _reduce_launch(name: str, plan: ReducePlan, a: torch.Tensor, b: torch.Tensor, *extra):
+    """Launch B1 (``name="channel_sums"``; ``b`` may be None) or B3
+    (``"abn_bwd"``; ``extra`` = gamma, beta, activation, slope) on ``plan``
+    and return the two fp32 [C] sums. The caller, one of the two wrappers,
+    has checked the operands, made ``plan`` for them, and counts the
+    launch."""
+    c = plan.channels
+    u = torch.empty(c, dtype=torch.float32, device=a.device)
+    v = torch.empty(c, dtype=torch.float32, device=a.device)
+    part = (torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=a.device)
+            if plan.clusters > 1 else None)
+    lib = _library(name)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        counters = _counters(a.device, stream, plan.counters) if plan.clusters > 1 else None
+        if name == "channel_sums":
+            rc = lib.channel_sums_launch(a.data_ptr(), _ptr(b), u.data_ptr(), v.data_ptr(),
+                                         _ptr(part), _ptr(counters), plan.packed,
+                                         _DTYPES[a.dtype], stream)
+        else:
+            gamma, beta, activation, slope = extra
+            rc = lib.abn_bwd_launch(a.data_ptr(), b.data_ptr(), gamma.data_ptr(),
+                                    beta.data_ptr(), u.data_ptr(), v.data_ptr(), _ptr(part),
+                                    _ptr(counters), plan.packed, _DTYPES[a.dtype],
+                                    _ACTIVATIONS[activation], float(slope), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    return u, v
+
+
+def _plan_for(a: torch.Tensor, b: Optional[torch.Tensor], inner: int) -> ReducePlan:
+    aligned = a.data_ptr() % 16 == 0 and (b is None or b.data_ptr() % 16 == 0)
+    return reduce_plan(a.shape, a.dtype, inner, aligned, sm_count(a.device), b is not None)
 
 
 def channel_sums_cuda(a: torch.Tensor, b: Optional[torch.Tensor] = None):
@@ -214,24 +416,14 @@ def channel_sums_cuda(a: torch.Tensor, b: Optional[torch.Tensor] = None):
 
     ``a`` (and ``b``, of the same dtype, shape and layout): fp32 or bf16 on a
     CUDA device, contiguous NCHW, channels_last or [M, C]. Returns two fp32
-    [C] tensors. Launches on the current stream and does not synchronise."""
+    [C] tensors. One kernel launch on the current stream, no
+    synchronisation."""
     inner = _check_reduce_input("channel_sums_cuda", a, b)
     c = a.shape[1]
-    s = torch.empty(c, dtype=torch.float32, device=a.device)
-    q = torch.empty(c, dtype=torch.float32, device=a.device)
     if a.numel() == 0:
-        return s.zero_(), q.zero_()
-    parts = _max_parts(a.device)
-    scratch = torch.empty((2, parts, c), dtype=torch.float32, device=a.device)
-    aligned = int(a.data_ptr() % 16 == 0 and (b is None or b.data_ptr() % 16 == 0))
-    lib = _library("channel_sums")
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.channel_sums_launch(
-            a.data_ptr(), None if b is None else b.data_ptr(), s.data_ptr(), q.data_ptr(),
-            scratch.data_ptr(), parts, a.numel(), inner, c, _DTYPES[a.dtype], aligned, stream)
-    if rc != 0:
-        raise RuntimeError(f"channel_sums kernel launch failed: cudaError {rc}")
+        return (torch.zeros(c, dtype=torch.float32, device=a.device),
+                torch.zeros(c, dtype=torch.float32, device=a.device))
+    s, q = _reduce_launch("channel_sums", _plan_for(a, b, inner), a, b)
     channel_sums_cuda.launches += 1
     return s, q
 
@@ -246,29 +438,18 @@ def abn_bwd_sums_cuda(z: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
 
     ``z`` (the layer's output) and ``g`` (its gradient): fp32 or bf16 of one
     dtype, shape and layout on a CUDA device, contiguous NCHW, channels_last
-    or [M, C]. ``gamma``/``beta``: fp32 [C] on the same device. Launches on the
-    current stream and does not synchronise."""
+    or [M, C]. ``gamma``/``beta``: fp32 [C] on the same device. One kernel
+    launch on the current stream, no synchronisation."""
     inner = _check_reduce_input("abn_bwd_sums_cuda", z, g)
     if activation not in _ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
     c = z.shape[1]
     _check_channel_vectors(z, gamma=gamma, beta=beta)
-    edz = torch.empty(c, dtype=torch.float32, device=z.device)
-    eydz = torch.empty(c, dtype=torch.float32, device=z.device)
     if z.numel() == 0:
-        return edz.zero_(), eydz.zero_()
-    parts = _max_parts(z.device)
-    scratch = torch.empty((2, parts, c), dtype=torch.float32, device=z.device)
-    aligned = int(z.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0)
-    lib = _library("abn_bwd")
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        rc = lib.abn_bwd_launch(
-            z.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(), edz.data_ptr(),
-            eydz.data_ptr(), scratch.data_ptr(), parts, z.numel(), inner, c,
-            _DTYPES[z.dtype], _ACTIVATIONS[activation], float(slope), aligned, stream)
-    if rc != 0:
-        raise RuntimeError(f"abn_bwd kernel launch failed: cudaError {rc}")
+        return (torch.zeros(c, dtype=torch.float32, device=z.device),
+                torch.zeros(c, dtype=torch.float32, device=z.device))
+    edz, eydz = _reduce_launch("abn_bwd", _plan_for(z, g, inner), z, g, gamma, beta,
+                               activation, slope)
     abn_bwd_sums_cuda.launches += 1
     return edz, eydz
 

@@ -36,9 +36,8 @@ SEED, BATCH, PATCH, LR, WARMUP, STEPS = 0, 16, 512, 1e-3, 3, 3
 
 # kernel-name fragments -> group, first match wins
 GROUPS = (
-    ("SumsOp", "B1 channel sums, pass 1 (this repo)"),
-    ("AbnBwdOp", "B3 ABN backward sums, pass 1 (this repo)"),
-    ("chred::combine_kernel", "B1/B3 pass 2 (this repo)"),
+    ("SumsOp", "B1 channel sums (this repo)"),
+    ("AbnBwdOp", "B3 ABN backward sums (this repo)"),
     ("abn_norm_act", "B2 affine+activation (this repo)"),
     ("wgrad", "convolution weight gradient (cuDNN)"),
     ("dgrad", "convolution data gradient / transposed conv (cuDNN)"),
