@@ -4,7 +4,9 @@
 
 Phases, one JSON line each; any failure exits non-zero:
 
-  device       the card (nvidia-smi name and power limit), torch and CUDA versions
+  device       the card (nvidia-smi name and power limit), torch and CUDA versions,
+               and which of pandas, tqdm, tensorboardX, cv2, sklearn and ninja
+               the machine can import
   build        nvcc build of every CUDA kernel of segtpu_torch/csrc, in seconds,
                and each kernel's registers and spills from ptxas -v
   kernel_b1    the channel-sums kernel against its plain PyTorch version
@@ -44,14 +46,31 @@ Phases, one JSON line each; any failure exits non-zero:
                DeviceShapes batch, 3 warm steps then 20 timed ones; images/s,
                ms/step, peak memory, first and last loss, and the launches of
                B1, B2 and B3 per step against the layer count
+  train_cli    the train CLI in process, in a temporary directory, three runs:
+               (a) -d shapes-device -b 16 -p 512 --bf16 -o adam -e 2 (64 train
+               steps and 8 validation batches an epoch), (b) -e 3 -r on the
+               same directory (resumes after the best epoch), (c) the host
+               loader, -d shapes -w 4 -s 4 -e 1. Per run: B1/B2/B3 launches
+               against train steps x (84, 48, 12) + validation batches x the
+               eval pass's (0, 12, 0), images/s over the train epochs and
+               over whole epochs, ms/step against the train phase's, peak
+               memory; the share of epoch 2 of (a) that the device spends
+               outside the steps (a CUDA event pair around each step); the
+               host loader's own samples/s; the host's waits for the card in
+               each train epoch (torch's sync debug mode: at most the
+               epoch's log fetch, none per step); the CSV and both .pth
+               files, the best one restored with its optimizer state
   counters     after training, every cached counter buffer of the B1/B3
                reduction holds zeros
   one_launch   a torch.profiler count: one call of B1 (either form) or B3
                runs exactly one device kernel, at the step's largest and
-               smallest shapes (last: the profiler slows later launches)
+               smallest shapes (a profiler session slows later launches)
+  cli_profile  last: the train CLI's --profile-dir trace of one shapes-device
+               epoch of 8 steps; the device's idle share over it (the union
+               of its kernels and copies against the epoch's span)
 
-The kernel counts are set to 0 just before each main path (serve, train) and
-read just after it. Then the kernel table line, the nvidia-smi line, and last
+The kernel counts are set to 0 just before each main path (serve, train,
+each train_cli run) and read just after it. Then the kernel table line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from a seed,
 with the normalisation statistics set from one calibration batch so that every
 layer sees activations of order one.
@@ -66,14 +85,17 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from collections import Counter
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from segtpu_torch import train_cli
 from segtpu_torch.augment import host as aug
 from segtpu_torch.data.inria import INRIA_MEAN, INRIA_STD
+from segtpu_torch.data.pipeline import DataLoader, Subset
 from segtpu_torch.data.shapes import DeviceShapes, ShapesDataset, to_nchw
 from segtpu_torch.inference import predict_tiled, predict_tiled_stream
 from segtpu_torch.models import get_model
@@ -84,7 +106,7 @@ from segtpu_torch.ops.abn import abn_bwd_sums_plain, abn_norm_act_plain, channel
 from segtpu_torch.ops.losses import get_loss
 from segtpu_torch.ops.metrics import default_metrics
 from segtpu_torch.profile_reduce import L2_FLUSH_BYTES, cuda_ms, step_norm_shapes
-from segtpu_torch.train.checkpoint import load_snapshot, save_snapshot
+from segtpu_torch.train.checkpoint import load_snapshot, restore_snapshot, save_snapshot
 from segtpu_torch.train.optim import get_optimizer
 from segtpu_torch.train.state import make_predict_step, make_train_step
 
@@ -96,6 +118,23 @@ TRAIN_BATCH, TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS = 16, 1e-3, 3, 20
 # 36 BatchNorm backwards and the 12 InPlaceABN forwards; B2 for the affine of
 # the 36 BatchNorms and the 12 InPlaceABNs; B3 for the 12 InPlaceABN backwards.
 STEP_LAUNCHES = {"channel_sums": 84, "abn_norm_act": 48, "abn_bwd": 12}
+# Launches per eval-mode pass: B2 in the 12 InPlaceABN layers; eval-mode
+# BatchNorm is F.batch_norm over the running statistics and runs no kernel of
+# this repo, and nothing is reduced.
+EVAL_LAUNCHES = {"channel_sums": 0, "abn_norm_act": 12, "abn_bwd": 0}
+CLI_ARGS = ["-m", "linknet34", "-l", "bce_jaccard", "-o", "adam", "-lr", "1e-3", "-b", str(TRAIN_BATCH),
+            "-p", str(PATCH), "--bf16", "--no-tensorboard", "--seed", "0"]
+# Host waits for the card allowed in a train epoch: the loop's one log fetch
+# at the epoch's end copies each of its 4 logs; one wait per step would give
+# 64 in a shapes-device epoch.
+EPOCH_SYNCS = 8
+# Train steps and validation batches of one shapes-device epoch: 1024 and
+# 128 samples.
+CLI_STEPS, CLI_VAL_BATCHES = 1024 // TRAIN_BATCH, 128 // TRAIN_BATCH
+# The main paths that run each kernel.
+KERNEL_PATHS = {"channel_sums": ("train", "train_cli"), "abn_norm_act": ("serve", "train", "train_cli"),
+                "abn_bwd": ("train", "train_cli")}
+OPTIONAL_PACKAGES = ("pandas", "tqdm", "tensorboardX", "cv2", "sklearn", "ninja")
 # Channel sums of fp32 terms, added in two orders: |err| <= RTOL_SUM * sum |term|.
 RTOL_SUM = 1e-5
 
@@ -147,12 +186,28 @@ def calibrate_norms(model: torch.nn.Module, x: torch.Tensor) -> None:
         h.remove()
 
 
+def importable(names):
+    """{name: True/False}: whether a fresh interpreter imports each module."""
+    code = ("import importlib, json, sys\n"
+            "ok = {}\n"
+            "for n in sys.argv[1:]:\n"
+            "    try:\n"
+            "        importlib.import_module(n); ok[n] = True\n"
+            "    except Exception:\n"
+            "        ok[n] = False\n"
+            "print(json.dumps(ok))\n")
+    out = subprocess.run([sys.executable, "-c", code, *names], capture_output=True, text=True,
+                         check=True, timeout=300)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def phase_device():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     name = torch.cuda.get_device_name(0)
     emit("device", name=name, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         count=torch.cuda.device_count(), python=sys.version.split()[0])
+         count=torch.cuda.device_count(), python=sys.version.split()[0],
+         importable=importable(OPTIONAL_PACKAGES))
     return name, smi
 
 
@@ -832,7 +887,189 @@ def phase_train():
          expected_launches_per_step=STEP_LAUNCHES, ok=bool(ok))
     if not ok:
         raise AssertionError("train checks failed")
-    return launches
+    return launches, seconds * 1e3 / TRAIN_STEPS
+
+
+class EpochTimer:
+    """Stands in for the train CLI's epoch runners and times them: the host
+    time of each train and validation epoch, synchronised at both ends, and
+    in train epoch ``event_epoch`` a CUDA event pair around each step. It
+    also counts the calls that make the host wait for the card in each train
+    epoch (torch's sync debug mode): the epoch's one log fetch, never one per
+    step."""
+
+    def __init__(self, event_epoch=None):
+        self.train_s, self.val_s, self.event_epoch, self.spans_ms = [], [], event_epoch, None
+        self.syncs = []
+        self.run_train, self.run_validate = train_cli.run_train_epoch, train_cli.run_validate_epoch
+
+    def train(self, train_step, loader, lr, epoch, *args, **kwargs):
+        step, pairs = train_step, []
+        if epoch == self.event_epoch:
+            def step(x, y, step_lr):
+                pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                pair[0].record()
+                logs = train_step(x, y, step_lr)
+                pair[1].record()
+                pairs.append(pair)
+                return logs
+            step.model = train_step.model
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = self.run_train(step, loader, lr, epoch, *args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        self.train_s.append(time.perf_counter() - t0)
+        self.syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        if pairs:
+            self.spans_ms = [a.elapsed_time(b) for a, b in pairs]
+            self.event_wall_ms = self.train_s[-1] * 1e3
+        return out
+
+    def validate(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.run_validate(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.val_s.append(time.perf_counter() - t0)
+        return out
+
+
+def cli_run(label, argv, train_steps, val_batches, step_ms, event_epoch=None):
+    """One in-process run of the train CLI with its launches, times and
+    peak memory; fails unless the launches are the layer count."""
+    timer = EpochTimer(event_epoch)
+    train_cli.run_train_epoch, train_cli.run_validate_epoch = timer.train, timer.validate
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        history = train_cli.main(argv)
+    finally:
+        train_cli.run_train_epoch, train_cli.run_validate_epoch = timer.run_train, timer.run_validate
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    expected = {k: train_steps * STEP_LAUNCHES[k] + val_batches * EVAL_LAUNCHES[k]
+                for k in STEP_LAUNCHES}
+    steps_per_epoch = train_steps / len(timer.train_s)
+    out = dict(run=label, argv=argv, epochs=history["epoch"], loss=history["loss"],
+               val_loss=history["val_loss"], train_steps=train_steps, val_batches=val_batches,
+               launches=launches, expected_launches=expected, seconds=seconds,
+               train_epoch_s=timer.train_s, val_epoch_s=timer.val_s,
+               images_per_s_train=train_steps * TRAIN_BATCH / sum(timer.train_s),
+               images_per_s_with_val=(train_steps * TRAIN_BATCH
+                                      / (sum(timer.train_s) + sum(timer.val_s))),
+               ms_per_step=[t * 1e3 / steps_per_epoch for t in timer.train_s],
+               train_phase_ms_per_step=step_ms, max_memory_allocated=torch.cuda.max_memory_allocated())
+    if timer.spans_ms is not None:
+        out.update(event_epoch=timer.event_epoch, steps_timed=len(timer.spans_ms),
+                   step_span_ms_median=float(np.median(timer.spans_ms)),
+                   idle_outside_steps_share=1 - sum(timer.spans_ms) / timer.event_wall_ms)
+    out.update(host_syncs_per_train_epoch=timer.syncs)
+    if (launches != expected or not all(np.isfinite(history["loss"] + history["val_loss"]))
+            or max(timer.syncs) > EPOCH_SYNCS):
+        raise AssertionError(f"train_cli {label}: launches {launches}, expected {expected}; "
+                             f"losses {history['loss']} {history['val_loss']}; host syncs per "
+                             f"train epoch {timer.syncs} for {steps_per_epoch} steps")
+    return history, out
+
+
+def loader_rate(workers: int, samples: int = 64) -> float:
+    """Samples/s of the host SHAPES loader alone at batch 16, patch 512."""
+    loader = DataLoader(Subset(ShapesDataset(1024, PATCH), samples), TRAIN_BATCH, shuffle=True,
+                        workers=workers)
+    t0 = time.perf_counter()
+    n = sum(len(x) for x, _ in loader)
+    return n / (time.perf_counter() - t0)
+
+
+def phase_train_cli(step_ms: float, tmpdir: Path):
+    """The train CLI's three runs (see the module docstring)."""
+    exp = str(tmpdir / "experiments")
+    base = CLI_ARGS + ["--experiments-dir", exp]
+    name = f"shapes-device_linknet34_{PATCH}_rgb_bce_jaccard"
+    d = tmpdir / "experiments" / "shapes-device" / "bce_jaccard" / name
+    runs, launches = [], Counter()
+
+    _, out = cli_run("a", base + ["-d", "shapes-device", "-e", "2"], 2 * CLI_STEPS,
+                     2 * CLI_VAL_BATCHES, step_ms, event_epoch=1)
+    runs.append(out)
+    launches.update(out["launches"])
+    ckpt = d / "linknet34_checkpoint.pth"
+    resume_from = torch.load(ckpt, map_location="cpu", weights_only=False)["epoch"] + 1
+    print("train_cli (b) resumes from epoch", resume_from, flush=True)
+    history_b, out = cli_run("b", base + ["-d", "shapes-device", "-e", "3", "-r"],
+                             (3 - resume_from) * CLI_STEPS, (3 - resume_from) * CLI_VAL_BATCHES,
+                             step_ms)
+    out["resumed_from_epoch"] = resume_from
+    runs.append(out)
+    launches.update(out["launches"])
+    rate = loader_rate(4)
+    _, out = cli_run("c", base + ["-d", "shapes", "-w", "4", "-s", "4", "-e", "1"], 4, 1, step_ms)
+    out["loader_samples_per_s"] = rate
+    runs.append(out)
+    launches.update(out["launches"])
+
+    csv_lines = (d / f"{name}.csv").read_text().splitlines()
+    model = get_model("linknet34", patch_size=PATCH, device="cuda")
+    opt = get_optimizer("adam", model.parameters(), TRAIN_LR)
+    start, _, best = restore_snapshot(str(ckpt), model, opt)
+    n_params = len(list(model.parameters()))
+    opt_ok = (len(opt.state) == n_params
+              and all(v["exp_avg"].device == p.device for p, v in opt.state.items()))
+    files_ok = all((d / f).exists() for f in ("arguments.txt", "linknet34_checkpoint.pth",
+                                              "linknet34_snapshot.pth"))
+    best_epoch = int(np.argmin(history_b["val_loss"]))
+    ok = (history_b["epoch"] == [0, 1, 2] and len(csv_lines) == 1 + 2 + 3 and files_ok and opt_ok
+          and start == best_epoch + 1 and best == min(history_b["val_loss"]))
+    emit("train_cli", runs=runs, resumed_from_epoch=resume_from, csv_lines=len(csv_lines),
+         best_checkpoint=dict(epoch=start - 1, loss=best, optimizer_tensors=len(opt.state),
+                              parameters=n_params),
+         launches=dict(launches), ok=bool(ok))
+    if not ok:
+        raise AssertionError("train_cli checks failed")
+    return dict(launches)
+
+
+def busy_share(trace_path: Path) -> dict:
+    """The device's busy and idle share over a torch.profiler Chrome trace:
+    the union of its kernels, copies and sets against the span of all its
+    events."""
+    events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    span = max(float(e["ts"]) + float(e["dur"]) for e in events) - min(float(e["ts"]) for e in events)
+    busy, end = 0.0, float("-inf")
+    for a, b in device:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return dict(span_ms=span / 1e3, busy_ms=busy / 1e3, device_events=len(device),
+                idle_share=1 - busy / span)
+
+
+def phase_cli_profile(tmpdir: Path):
+    """The train CLI's --profile-dir on the card: one shapes-device epoch of
+    8 steps under torch.profiler, and the device's idle share over it."""
+    prof = tmpdir / "profile"
+    train_cli.main(CLI_ARGS + ["--experiments-dir", str(tmpdir / "profiled"), "-d", "shapes-device",
+                               "-e", "1", "-s", "8", "--profile-dir", str(prof)])
+    traces = list(prof.glob("*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"cli_profile: {len(traces)} traces written")
+    share = busy_share(traces[0])
+    emit("cli_profile", steps=8, trace_bytes=traces[0].stat().st_size, **share,
+         note="under torch.profiler, which slows the host's launches", ok=share["device_events"] > 0)
+    if share["device_events"] == 0:
+        raise AssertionError("cli_profile: the trace holds no device events")
 
 
 def phase_one_launch(norm_shapes):
@@ -891,7 +1128,9 @@ def main() -> int:
         state_dict = phase_model_parity(Path(tmp))
     serve = phase_serve(state_dict)
     phase_train_parity()
-    train = phase_train()
+    train, step_ms = phase_train()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = phase_train_cli(step_ms, Path(tmp))
     counters = kernels.counter_buffers()
     if not counters or any(int(buf.count_nonzero()) for buf in counters):
         raise AssertionError("the B1/B3 counter buffers are not all zero after training: "
@@ -899,20 +1138,26 @@ def main() -> int:
     emit("counters", buffers=len(counters), ints=sum(buf.numel() for buf in counters),
          nonzero=0, ok=True)
     phase_one_launch(norm_shapes)
-    for name, count in (("abn_norm_act", serve["abn_norm_act"]), ("channel_sums", train["channel_sums"]),
-                        ("abn_norm_act", train["abn_norm_act"]), ("abn_bwd", train["abn_bwd"])):
-        if count == 0:
-            raise AssertionError(f"a main path never launched the {name} kernel")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_cli_profile(Path(tmp))
+    counts = {"serve": serve, "train": train, "train_cli": cli}
+    by_path = {name: {p: counts[p][name] for p in paths} for name, paths in KERNEL_PATHS.items()}
+    for name, counts in by_path.items():
+        for path, count in counts.items():
+            if count == 0:
+                raise AssertionError(f"the {path} path never launched the {name} kernel")
     print(json.dumps({"kernels": [
-        kernel_entry("B1", "channel_sums", "segtpu/ops/bn_alt.py:100", train["channel_sums"],
-                     b1_err, b1, form="single (sum x, sum x^2); library: torch.var_mean",
-                     per_step=_per_step_entry(b1["per_step"])),
+        kernel_entry("B1", "channel_sums", "segtpu/ops/bn_alt.py:100",
+                     sum(by_path["channel_sums"].values()), b1_err, b1,
+                     form="single (sum x, sum x^2); library: torch.var_mean",
+                     per_step=_per_step_entry(b1["per_step"]),
+                     launches_by_path=by_path["channel_sums"]),
         kernel_entry("B2", "abn_norm_act", "segtpu/ops/bn_alt.py:181",
-                     serve["abn_norm_act"] + train["abn_norm_act"], b2_err, dict(b2, library_ms=None),
-                     launches_by_path={"serve": serve["abn_norm_act"],
-                                       "train": train["abn_norm_act"]}),
-        kernel_entry("B3", "abn_bwd", "segtpu/ops/bn_alt.py:216", train["abn_bwd"], b3_err, b3,
-                     activation="leaky_relu", per_step=_per_step_entry(b3["per_step"])),
+                     sum(by_path["abn_norm_act"].values()), b2_err, dict(b2, library_ms=None),
+                     launches_by_path=by_path["abn_norm_act"]),
+        kernel_entry("B3", "abn_bwd", "segtpu/ops/bn_alt.py:216", sum(by_path["abn_bwd"].values()),
+                     b3_err, b3, activation="leaky_relu", per_step=_per_step_entry(b3["per_step"]),
+                     launches_by_path=by_path["abn_bwd"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

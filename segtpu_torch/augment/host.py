@@ -1,10 +1,73 @@
-"""Host-side transforms needed by inference (copies of the combinators and
-``NormalizeImage`` of segtpu/augment/host.py; reference lib/augmentations.py).
-NumPy only."""
+"""Host-side transforms (copies of the combinators and ``NormalizeImage`` of
+segtpu/augment/host.py; reference lib/augmentations.py) and the per-sample
+random streams of seeded training. NumPy and the standard library only.
+
+Per-sample streams are the reproducibility contract of seeded training: the
+loader binds ``Random(h(seed, epoch, dataset_index))`` around each
+``__getitem__`` (:func:`bind_sample_rng`), so a sample's draws depend only on
+which sample of which epoch is made, never on which loader thread made it or
+how many threads the loader runs. :data:`DEFAULT_RNG` draws from the bound
+stream, and from the module-global ``random`` when none is bound.
+"""
 
 from __future__ import annotations
 
+import hashlib
+import random as _random
+import threading
+
 import numpy as np
+
+_sample_ctx = threading.local()
+
+
+def derive_sample_rng(seed: int, epoch: int, index: int) -> _random.Random:
+    """Stateless per-sample stream: ``Random`` keyed on (seed, epoch, index)
+    by blake2b, which, unlike ``hash()``, is not salted per process."""
+    digest = hashlib.blake2b(f"{seed}/{epoch}/{index}".encode(), digest_size=8).digest()
+    return _random.Random(int.from_bytes(digest, "little"))
+
+
+class bind_sample_rng:
+    """Context manager binding the calling thread's per-sample stream, which
+    :data:`DEFAULT_RNG` draws from. On exit the binding that was there
+    before comes back, so a nested binding leaves the outer one in place."""
+
+    def __init__(self, seed: int, epoch: int, index: int):
+        self.rng = derive_sample_rng(seed, epoch, index)
+
+    def __enter__(self) -> _random.Random:
+        self.outer = getattr(_sample_ctx, "rng", None)
+        _sample_ctx.rng = self.rng
+        return self.rng
+
+    def __exit__(self, *exc):
+        _sample_ctx.rng = self.outer
+        return False
+
+
+class _DefaultRNG:
+    """``random.Random`` facade: the bound per-sample stream, else the
+    module-global ``random``."""
+
+    @staticmethod
+    def _impl():
+        return getattr(_sample_ctx, "rng", None) or _random
+
+    def random(self):
+        return self._impl().random()
+
+    def uniform(self, a, b):
+        return self._impl().uniform(a, b)
+
+    def randint(self, a, b):
+        return self._impl().randint(a, b)
+
+    def choice(self, seq):
+        return self._impl().choice(seq)
+
+
+DEFAULT_RNG = _DefaultRNG()
 
 
 class Sequential:

@@ -10,10 +10,15 @@ zero-data smoke vehicle of the whole pipeline.
   * :class:`DeviceShapes`: batches made on the device from an explicit
     ``torch.Generator``, NCHW. Same distribution as segtpu's ``DeviceShapes``,
     not the same bits (``jax.random`` and torch's generators differ).
+  * :func:`SHAPES` and :func:`SHAPES_DEVICE`: the registry's ``shapes`` and
+    ``shapes-device`` splits; :class:`DeviceShapesSet` and
+    :class:`DeviceShapesLoader` serve the latter with no host work per batch
+    beyond seeding a generator.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Tuple
 
 import numpy as np
@@ -115,6 +120,10 @@ class DeviceShapes:
         self.patch_size = patch_size
         self.normalize = normalize
         self.device = resolve_device(device)
+        # on the device once: a copy from host memory per batch would make
+        # the host wait for the card at every batch
+        self.mean = torch.as_tensor(IMAGENET_MEAN, device=self.device).view(1, 3, 1, 1)
+        self.std = torch.as_tensor(IMAGENET_STD, device=self.device).view(1, 3, 1, 1)
 
     def batch(self, batch_size: int, generator: torch.Generator):
         p, b, dev = self.patch_size, batch_size, self.device
@@ -144,7 +153,101 @@ class DeviceShapes:
 
         mask = inside.float()
         if self.normalize:
-            mean = torch.as_tensor(IMAGENET_MEAN, device=dev).view(1, 3, 1, 1)
-            std = torch.as_tensor(IMAGENET_STD, device=dev).view(1, 3, 1, 1)
-            img = (img / 255.0 - mean) / std
+            img = (img / 255.0 - self.mean) / self.std
         return img, mask
+
+
+def _batch_seed(seed: int, epoch: int, index: int) -> int:
+    """A stable 63-bit seed for batch ``index`` of ``epoch`` (blake2b, not
+    the per-process salted ``hash``)."""
+    digest = hashlib.blake2b(f"{seed}/{epoch}/{index}".encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "little") & (2 ** 63 - 1)
+
+
+class DeviceShapesSet:
+    """SHAPES made on the device, registered as ``shapes-device``
+    (segtpu/data/shapes.py:150-205).
+
+    No host work per batch beyond seeding a generator, so the card never
+    waits on a host loader. Train samples are keyed on (seed, epoch, batch),
+    fresh every epoch like the host path's; a ``fixed`` set (validation)
+    ignores the epoch, so every epoch evaluates the same samples."""
+
+    def __init__(self, n: int, patch_size: int, seed: int = 0, fixed: bool = False,
+                 grayscale: bool = False):
+        self.n = n
+        self.patch_size = patch_size
+        self.seed = seed
+        self.fixed = fixed
+        self.grayscale = grayscale
+
+    def __len__(self):
+        return self.n
+
+    @property
+    def num_channels(self) -> int:
+        return 1 if self.grayscale else 3
+
+    def take(self, n: int) -> "DeviceShapesSet":
+        """A copy cut to ``n`` samples (the ``-s`` cap; ``Subset`` for host sets)."""
+        return DeviceShapesSet(min(self.n, n), self.patch_size, seed=self.seed,
+                               fixed=self.fixed, grayscale=self.grayscale)
+
+    def loader(self, batch_size: int, device: DeviceLike = None) -> "DeviceShapesLoader":
+        return DeviceShapesLoader(self, batch_size, device)
+
+
+class DeviceShapesLoader:
+    """The loader interface of :class:`~segtpu_torch.data.pipeline.DataLoader`
+    (``__len__``, ``set_epoch``, iteration, ``drop_last``) over
+    :class:`DeviceShapes`: yields NCHW float32 ``(x, y)`` on the device,
+    which ``prefetch_to_device`` passes through. Batch ``i`` of epoch ``e``
+    comes from a ``torch.Generator`` on the device seeded from (seed, e, i);
+    nothing is copied from the host, so no batch waits for the card. With
+    ``grayscale`` the luma is taken from the raw 0-255 RGB and then
+    normalised with the grayscale ImageNet statistics, the host path's order
+    (``ShapesDataset.__getitem__``)."""
+
+    def __init__(self, spec: DeviceShapesSet, batch_size: int, device: DeviceLike = None):
+        self.spec = spec
+        self.batch_size = batch_size
+        self.epoch = 0
+        self.gen = DeviceShapes(spec.patch_size, normalize=not spec.grayscale, device=device)
+        self.generator = torch.Generator(device=self.gen.device)
+        self.gray = torch.as_tensor(GRAY_WEIGHTS, device=self.gen.device).view(1, 3, 1, 1)
+
+    def __len__(self):
+        return self.spec.n // self.batch_size
+
+    def set_epoch(self, epoch: int):
+        self.epoch = 0 if self.spec.fixed else epoch
+
+    def __iter__(self):
+        for i in range(len(self)):
+            self.generator.manual_seed(_batch_seed(self.spec.seed, self.epoch, i))
+            x, y = self.gen.batch(self.batch_size, self.generator)
+            if self.spec.grayscale:
+                x = (x * self.gray).sum(1, keepdim=True)
+                x = (x / 255.0 - IMAGENET_GRAY_MEAN) / IMAGENET_GRAY_STD
+            yield x, y
+
+
+def SHAPES(patch_size: int, seed: int = 0, grayscale: bool = False):
+    """``(train_ds, valid_ds, num_classes)``: 1024 train and 128 validation
+    samples, 1 class (reference lib/datasets/shapes.py:62-69)."""
+    return (
+        ShapesDataset(1024, patch_size, seed=seed, grayscale=grayscale),
+        ShapesDataset(128, patch_size, seed=seed + 1_000_000, grayscale=grayscale),
+        1,
+    )
+
+
+def SHAPES_DEVICE(patch_size: int, seed: int = 0, grayscale: bool = False):
+    """``shapes-device``: the split sizes and class count of :func:`SHAPES`,
+    the samples made on the device."""
+    return (
+        DeviceShapesSet(1024, patch_size, seed=seed, grayscale=grayscale),
+        DeviceShapesSet(128, patch_size, seed=seed + 1_000_000, fixed=True,
+                        grayscale=grayscale),
+        1,
+    )

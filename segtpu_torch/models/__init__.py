@@ -38,6 +38,13 @@ def get_model(model_name: str, patch_size: int = 224, num_channels: int = 3,
     model = _REGISTRY[name](patch_size, num_channels)
     reset_parameters(model, torch.Generator().manual_seed(seed))
     model.eval()
+    return place_model(model, dev)
+
+
+def place_model(model: nn.Module, device: DeviceLike = None) -> nn.Module:
+    """``model`` on ``device`` (CUDA unless the caller passes the CPU), in
+    ``channels_last`` memory on CUDA."""
+    dev = resolve_device(device)
     if dev.type == "cuda":
         return model.to(device=dev, memory_format=torch.channels_last)
     return model.to(device=dev)

@@ -1,9 +1,8 @@
 """Segmentation metrics as tensors on the device (counterpart of
 segtpu/ops/metrics.py:16-50; reference lib/metrics.py).
 
-Each returns a scalar tensor and reads nothing back to the host, so a train
-step can log them without a synchronisation. ``pr_curve_counts`` is not
-ported yet.
+Each returns tensors on the logits' device and reads nothing back to the
+host, so a train or eval step can log them without a synchronisation.
 """
 
 from __future__ import annotations
@@ -47,3 +46,27 @@ METRIC_REGISTRY = {
 def default_metrics():
     """The reference's metric set: {'iou', 'accuracy'} (torch_train.py:376)."""
     return dict(METRIC_REGISTRY)
+
+
+def pr_curve_counts(logits: torch.Tensor, targets: torch.Tensor, n_thresholds: int = 127):
+    """Confusion counts over a threshold sweep (segtpu/ops/metrics.py:53-89;
+    reference lib/train_utils.py:92-131): ``(tp, tn, fp, fn)``, int32 tensors
+    of shape ``(n_thresholds,)`` on the logits' device, at thresholds
+    ``arange(n) / n``.
+
+    A pixel whose probability lies above ``k`` thresholds (``searchsorted``,
+    left side) is positive for thresholds ``0 .. k-1``: the pixels are
+    counted per (k, target) with one scatter-add, and suffix sums give the
+    counts per threshold. No boolean indexing, so no host round-trip."""
+    p = torch.sigmoid(logits.float()).reshape(-1)
+    t = (targets.reshape(-1) > 0.5).long()
+    thresholds = torch.arange(n_thresholds, dtype=torch.float32, device=p.device) / n_thresholds
+    n_above = torch.searchsorted(thresholds, p, right=False)  # in [0, n]
+    counts = torch.zeros(2 * (n_thresholds + 1), dtype=torch.int64, device=p.device)
+    counts.scatter_add_(0, n_above + (n_thresholds + 1) * t, torch.ones_like(n_above))
+    neg_bins, pos_bins = counts[1:n_thresholds + 1], counts[n_thresholds + 2:]
+    tp = pos_bins.flip(0).cumsum(0).flip(0)
+    fp = neg_bins.flip(0).cumsum(0).flip(0)
+    n_pos = t.sum()
+    n_neg = t.numel() - n_pos
+    return tuple(v.to(torch.int32) for v in (tp, n_neg - fp, fp, n_pos - tp))

@@ -12,18 +12,21 @@ layout the model is kept in. ``bf16`` runs the model's forward under
 bfloat16 autocast. The model returns fp32 logits (float64 from a float64
 model), and the loss and metrics are taken on them outside autocast.
 
-Waiting for later slices: ``trainable_mask``, ``param_penalty`` and
-``augment_fn`` of segtpu's ``make_train_step``, and the PR-curve counts of
-its eval step.
+Each step function carries its model as ``step.model``, for the epoch
+loop's image and histogram logging.
+
+Waiting for a later slice: ``augment_fn`` (device augmentations) of
+segtpu's ``make_train_step``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import AbstractSet, Callable, Dict, Optional
 
 import torch
 from torch import nn
 
+from segtpu_torch.ops.metrics import pr_curve_counts
 from segtpu_torch.train.optim import set_learning_rate
 
 Logs = Dict[str, torch.Tensor]
@@ -45,16 +48,35 @@ def grad_absmax(grads) -> torch.Tensor:
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn: Callable,
-                    metrics: Optional[Dict[str, Callable]] = None,
-                    bf16: bool = False) -> Callable[[torch.Tensor, torch.Tensor, float], Logs]:
+                    metrics: Optional[Dict[str, Callable]] = None, bf16: bool = False,
+                    trainable_mask: Optional[AbstractSet[str]] = None,
+                    param_penalty: Optional[Callable[[nn.Module], torch.Tensor]] = None,
+                    ) -> Callable[[torch.Tensor, torch.Tensor, float], Logs]:
     """``step(x, y, lr) -> logs``: one training step of ``model`` in place.
 
     ``x``: NCHW float32 images, ``y``: NCHW targets, both on the model's
     device; ``lr``: this step's learning rate (a host float). The gradients
     are those of ``batch_size * loss``, as the reference's. ``logs`` holds
     ``loss``, ``grad_absmax`` and each metric, as 0-d tensors on the device;
-    the parameters' ``.grad`` keep this step's gradients."""
+    the parameters' ``.grad`` keep this step's gradients.
+
+    ``trainable_mask``: the names (``model.named_parameters()``) of the
+    parameters that train. Every other parameter's gradient is zeroed after
+    the backward and before ``optimizer.step()``, as segtpu multiplies its
+    gradients by the mask (segtpu/train/state.py:117-121); the gradient is
+    not dropped (``None``), which would change what torch's optimizers keep
+    per parameter. ``param_penalty(model) -> 0-d tensor`` is added to
+    ``batch_size * loss`` before the backward (the regularised trainer,
+    reference torch_train_reg.py:92-97); the logged ``loss`` stays the
+    unscaled loss. ``grad_absmax`` is taken after the mask."""
     metrics = metrics or {}
+    frozen = []
+    if trainable_mask is not None:
+        names = dict(model.named_parameters())
+        unknown = set(trainable_mask) - set(names)
+        if unknown:
+            raise ValueError(f"trainable_mask names no parameter of the model: {sorted(unknown)}")
+        frozen = [p for n, p in names.items() if n not in trainable_mask]
 
     def train_step(x: torch.Tensor, y: torch.Tensor, lr: float) -> Logs:
         model.train()
@@ -64,7 +86,13 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn:
         with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
             logits = model(x)
         loss = loss_fn(logits, y)
-        (loss * x.shape[0]).backward()
+        total = loss * x.shape[0]
+        if param_penalty is not None:
+            total = total + param_penalty(model)
+        total.backward()
+        for p in frozen:
+            if p.grad is not None:
+                p.grad.zero_()
         logs = {"loss": loss.detach(),
                 "grad_absmax": grad_absmax(p.grad for p in model.parameters())}
         optimizer.step()
@@ -73,26 +101,35 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn:
                 logs[name] = fn(logits.detach(), y)
         return logs
 
+    train_step.model = model
     return train_step
 
 
 def make_eval_step(model: nn.Module, loss_fn: Callable,
-                   metrics: Optional[Dict[str, Callable]] = None
-                   ) -> Callable[[torch.Tensor, torch.Tensor], Logs]:
+                   metrics: Optional[Dict[str, Callable]] = None, bf16: bool = False,
+                   with_pr_curve: bool = False) -> Callable[[torch.Tensor, torch.Tensor], Logs]:
     """``step(x, y) -> logs``: loss and metrics of ``model`` in eval mode,
     with its running statistics (the reference's validate(),
-    torch_train.py:240-305). Logs are 0-d tensors on the device."""
+    torch_train.py:240-305). Logs are 0-d tensors on the device. ``bf16``
+    runs the forward under bfloat16 autocast, as the train step's.
+    ``with_pr_curve`` adds ``logs["pr_counts"]``, the ``(tp, tn, fp, fn)`` of
+    :func:`~segtpu_torch.ops.metrics.pr_curve_counts`."""
     metrics = metrics or {}
 
     def eval_step(x: torch.Tensor, y: torch.Tensor) -> Logs:
         model.eval()
         with torch.inference_mode():
-            logits = model(_model_input(x))
+            x = _model_input(x)
+            with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
+                logits = model(x)
             logs = {"loss": loss_fn(logits, y)}
             for name, fn in metrics.items():
                 logs[name] = fn(logits, y)
+            if with_pr_curve:
+                logs["pr_counts"] = pr_curve_counts(logits, y)
         return logs
 
+    eval_step.model = model
     return eval_step
 
 

@@ -1,0 +1,336 @@
+"""Training harness CLI of the port (counterpart of segtpu/train_cli.py;
+reference torch_train.py:333-451).
+
+One grid cell: argparse -> registries build model, loss, optimizer and
+dataset -> the epoch loop, a train epoch then a validation epoch -> history
+-> best and last checkpoints -> the CSV at the end. Flags and defaults are
+segtpu's, plus ``--device``; runs on CUDA unless ``--device cpu``.
+
+    python -m segtpu_torch.train_cli -m linknet34 -d shapes-device -l bce_jaccard \\
+        -o adam -b 16 -p 512 -e 2 --bf16 --no-tensorboard
+
+Needs neither pandas, tqdm, cv2 nor scikit-learn; tensorboardX only when
+the writer is on (no ``--no-tensorboard``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import math
+import os
+import random
+import sys
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from segtpu_torch.data import get_dataset
+from segtpu_torch.data.pipeline import DataLoader, Subset
+from segtpu_torch.data.shapes import DeviceShapesSet
+from segtpu_torch.device import resolve_device
+from segtpu_torch.models import get_model, place_model
+from segtpu_torch.ops.losses import get_loss
+from segtpu_torch.ops.metrics import default_metrics
+from segtpu_torch.train.checkpoint import restore_snapshot, save_snapshot
+from segtpu_torch.train.loop import run_train_epoch, run_validate_epoch
+from segtpu_torch.train.optim import cosine_annealing_lr, get_optimizer
+from segtpu_torch.train.state import make_eval_step, make_train_step
+from segtpu_torch.utils import count_parameters
+
+# Parameter-name prefixes of each model's encoder, the modules that segtpu's
+# ENCODER_SPECS path ``("encoder",)`` maps to (compat/jax_params.py).
+ENCODER_PREFIXES = {
+    "linknet34": ("firstconv.", "firstbn.", "encoder1.", "encoder2.", "encoder3.", "encoder4."),
+}
+
+# segtpu flags whose feature is not ported yet: each exits and names its
+# ROADMAP.md item instead of being ignored.
+LATER_FLAGS = (
+    ("model_parallel", lambda v: v > 1, "--model-parallel",
+     "slice 5 of ROADMAP.md (parallel modes: tensor parallel)"),
+    ("s2d", bool, "--s2d", "slice 5 of ROADMAP.md (s2d mode) and A1"),
+    ("remat", bool, "--remat", "slice 4 of ROADMAP.md (tiramisu, torch.utils.checkpoint)"),
+    ("packed", bool, "--packed", "slice 4 of ROADMAP.md (tiramisu)"),
+    ("device_augs", bool, "--device-augs",
+     "slice 5 of ROADMAP.md (device augmentations) and A4 (augment_fn)"),
+    ("encoder_weights", lambda v: v is not None, "--encoder-weights",
+     "A1 of ROADMAP.md (torchvision-format encoder weights)"),
+)
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-g", "--grayscale", action="store_true",
+                        help="Whether to use grayscale image instead of RGB")
+    parser.add_argument("-m", "--model", required=True, type=str, help="Name of the model")
+    parser.add_argument("-p", "--patch-size", type=int, default=224)
+    parser.add_argument("-b", "--batch-size", type=int, default=1,
+                        help="Batch Size during training, e.g. -b 64")
+    parser.add_argument("-lr", "--learning-rate", type=float, default=1e-3,
+                        help="Initial learning rate")
+    parser.add_argument("-l", "--loss", type=str, default="bce", help="Target loss")
+    parser.add_argument("-o", "--optimizer", default="SGD", help="Name of the optimizer")
+    parser.add_argument("-e", "--epochs", type=int, default=100, help="Epoch to run")
+    parser.add_argument("-d", "--dataset", type=str,
+                        help="Name of the dataset to use for training.")
+    parser.add_argument("-dd", "--data-dir", type=str, default="data",
+                        help="Root directory where datasets are located.")
+    parser.add_argument("-s", "--steps", type=int, default=None,
+                        help="Steps per epoch (caps the train set to steps * batch and "
+                             "the validation set to max(steps // 4, 1) batches)")
+    parser.add_argument("-x", "--experiment", type=str, help="Name of the experiment")
+    parser.add_argument("-w", "--workers", default=0, type=int,
+                        help="Loader threads (0: 4)")
+    parser.add_argument("-r", "--resume", action="store_true",
+                        help="Resume from the best checkpoint of the experiment")
+    parser.add_argument("-mem", "--memory", action="store_true")
+    parser.add_argument("-sgdr", action="store_true",
+                        help="Cosine-annealed learning rate (T_max 10, eta_min 1e-8)")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 autocast (parameters stay fp32)")
+    parser.add_argument("--model-parallel", type=int, default=1,
+                        help="Model-parallel mesh axis size (not yet ported: only 1)")
+    parser.add_argument("--s2d", action="store_true", help="Space-to-depth mode (not yet ported)")
+    parser.add_argument("--remat", action="store_true",
+                        help="Per-block rematerialization (not yet ported)")
+    parser.add_argument("--packed", action="store_true",
+                        help="Packed dense-block growth (not yet ported)")
+    parser.add_argument("--light-logging", action="store_true",
+                        help="Skip per-epoch image grids and weight histograms")
+    parser.add_argument("--no-tensorboard", action="store_true")
+    parser.add_argument("--experiments-dir", type=str, default="experiments")
+    parser.add_argument("--snapshot-every", type=int, default=1,
+                        help="Save the last-epoch snapshot every N epochs (0 disables "
+                             "both checkpoints)")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="Write a torch.profiler Chrome trace of the first training "
+                             "epoch into this directory")
+    parser.add_argument("--device-augs", action="store_true",
+                        help="Device augmentation (not yet ported)")
+    parser.add_argument("--freeze-encoder", action="store_true",
+                        help="Freeze the encoder's parameters (zero gradients)")
+    parser.add_argument("--seed", type=int, default=None,
+                        help="Seed random, np.random and torch, the loader's shuffle and "
+                             "the per-sample host streams. Default: shuffle seed 0, "
+                             "torch seed 42, host streams unseeded")
+    parser.add_argument("--init-torch", type=str, default=None,
+                        help="Reference-format .pth (a state_dict or a full snapshot) "
+                             "loaded into the model before training")
+    parser.add_argument("--encoder-weights", type=str, default=None,
+                        help="torchvision-format encoder weights (not yet ported)")
+    parser.add_argument("--device", type=str, default=None,
+                        help="Device to train on (default cuda; a missing GPU is an error)")
+    return parser
+
+
+def _csv_cell(value) -> str:
+    """A history value as pandas' ``to_csv`` writes it: NaN empty, a float
+    by its shortest repr, anything else by ``str``."""
+    if isinstance(value, (float, np.floating)):
+        return "" if math.isnan(value) else repr(float(value))
+    return str(value)
+
+
+def write_history_csv(path: str, train_history: Dict[str, list], append: bool) -> None:
+    """``pd.DataFrame(train_history).to_csv(path, index=False)``, with the
+    ``csv`` module: the header unless ``append``, then one row per epoch."""
+    keys = list(train_history)
+    with open(path, "a" if append else "w", newline="") as f:
+        out = csv.writer(f, lineterminator=os.linesep)
+        if not append:
+            out.writerow(keys)
+        for row in zip(*(train_history[k] for k in keys)):
+            out.writerow([_csv_cell(v) for v in row])
+
+
+def _make_writer(experiment: str):
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        raise SystemExit("tensorboardX is not installed: pass --no-tensorboard") from None
+    return SummaryWriter(comment="_" + experiment)
+
+
+def main(argv=None, *, param_penalty: Optional[Callable] = None,
+         model_builder: Optional[Callable] = None, trainable_mask_fn: Optional[Callable] = None,
+         model_initializer: Optional[Callable] = None, experiment_prefix: str = ""):
+    """Run one training grid cell; returns ``train_history``.
+
+    Hooks for the other trainers:
+      * ``param_penalty(model) -> 0-d tensor``, added to the scaled loss
+        (the regularised trainer, torch_train_reg.py:92-97);
+      * ``model_builder(args, num_channels) -> nn.Module``, in place of the
+        registry's model;
+      * ``trainable_mask_fn(model) -> set of parameter names that train``;
+      * ``model_initializer(model, args)``, e.g. to load frozen weights.
+    """
+    parser = build_arg_parser()
+    args = parser.parse_args(argv)
+    if args.dataset is None:
+        parser.error("the following arguments are required: -d/--dataset")
+    for attr, is_set, flag, item in LATER_FLAGS:
+        if is_set(getattr(args, attr)):
+            raise SystemExit(f"{flag} is not yet ported to segtpu_torch: it waits for {item}")
+    device = resolve_device(args.device)
+
+    if args.seed is not None:
+        random.seed(args.seed)
+        np.random.seed(args.seed)
+    torch.manual_seed(42 if args.seed is None else args.seed)
+
+    if args.experiment is None:
+        args.experiment = "%s%s_%s_%d_%s_%s" % (
+            experiment_prefix, args.dataset, args.model, args.patch_size,
+            "gray" if args.grayscale else "rgb", args.loss)
+    experiment_dir = os.path.join(args.experiments_dir, args.dataset, args.loss, args.experiment)
+    os.makedirs(experiment_dir, exist_ok=True)
+
+    writer = None if args.no_tensorboard else _make_writer(args.experiment)
+    arg_line = " ".join(sys.argv[1:] if argv is None else argv)
+    with open(os.path.join(experiment_dir, "arguments.txt"), "w") as f:
+        f.write(arg_line)
+
+    trainset, validset, _ = get_dataset(args.dataset, args.data_dir, grayscale=args.grayscale,
+                                        patch_size=args.patch_size, keep_in_mem=args.memory)
+    if args.steps is not None and args.steps > 0:
+        n_train, n_val = args.steps * args.batch_size, max(args.steps // 4, 1) * args.batch_size
+        if isinstance(trainset, DeviceShapesSet):
+            trainset, validset = trainset.take(n_train), validset.take(n_val)
+        else:
+            trainset, validset = Subset(trainset, n_train), Subset(validset, n_val)
+    num_channels = getattr(trainset, "num_channels", None)
+    if num_channels is None:
+        num_channels = int(np.asarray(trainset[0][0]).shape[-1])
+
+    if model_builder is not None:
+        model = place_model(model_builder(args, num_channels), device)
+    else:
+        model = get_model(args.model, patch_size=args.patch_size, num_channels=num_channels,
+                          device=device)
+    if args.init_torch:
+        sd = torch.load(args.init_torch, map_location="cpu", weights_only=False)
+        if isinstance(sd, dict) and "model" in sd:  # a full reference snapshot
+            sd = sd["model"]
+        model.load_state_dict(sd, strict=True)
+        print("Torch weights loaded from", args.init_torch)
+    if model_initializer is not None:
+        model_initializer(model, args)
+
+    trainable = trainable_mask_fn(model) if trainable_mask_fn else None
+    if args.freeze_encoder:
+        prefixes = ENCODER_PREFIXES.get(args.model.lower())
+        if prefixes is None:
+            raise SystemExit(f"--freeze-encoder: model '{args.model}' has no encoder subtree")
+        names = trainable if trainable is not None else {n for n, _ in model.named_parameters()}
+        trainable = {n for n in names if not n.startswith(prefixes)}
+
+    loss_fn = get_loss(args.loss)
+    optimizer = get_optimizer(args.optimizer, model.parameters(), args.learning_rate)
+    metrics = default_metrics()
+
+    print("Train set size", len(trainset))
+    print("Valid set size", len(validset))
+    print("Model         ", args.model)
+    print("Parameters    ", count_parameters(model))
+    print("Device        ", device, torch.cuda.get_device_name(device) if device.type == "cuda"
+          else "")
+
+    if isinstance(trainset, DeviceShapesSet):
+        trainloader = trainset.loader(args.batch_size, device)
+        validloader = validset.loader(args.batch_size, device)
+    else:
+        # seeded runs bind a stateless per-sample stream around each sample
+        # (augment.host.bind_sample_rng): bit-identical at any -w
+        workers = args.workers if args.workers > 0 else 4
+        trainloader = DataLoader(trainset, batch_size=args.batch_size, shuffle=True,
+                                 workers=workers, drop_last=True,
+                                 seed=args.seed if args.seed is not None else 0,
+                                 sample_seed=args.seed)
+        validloader = DataLoader(validset, batch_size=args.batch_size, shuffle=False,
+                                 workers=workers, drop_last=True)
+
+    start_epoch, best_loss, train_history = 0, np.inf, {}
+    checkpoint_filename = os.path.join(experiment_dir, f"{args.model}_checkpoint.pth")
+    snapshot_filename = os.path.join(experiment_dir, f"{args.model}_snapshot.pth")
+    if args.resume:
+        start_epoch, train_history, best_loss = restore_snapshot(checkpoint_filename, model,
+                                                                 optimizer)
+        print("Resuming training from epoch", start_epoch, " and loss", best_loss)
+
+    train_step = make_train_step(model, optimizer, loss_fn, metrics, bf16=args.bf16,
+                                 trainable_mask=trainable, param_penalty=param_penalty)
+    eval_step = make_eval_step(model, loss_fn, metrics, bf16=args.bf16,
+                               with_pr_curve=writer is not None)
+    metric_names = list(metrics)
+
+    def snapshot(path, loss, epoch):
+        save_snapshot(path, model, optimizer, epoch=epoch, loss=loss,
+                      train_history=train_history, args=arg_line)
+
+    for epoch in range(start_epoch, args.epochs):
+        lr = args.learning_rate
+        if args.sgdr:
+            lr = cosine_annealing_lr(epoch, args.learning_rate, t_max=10, eta_min=1e-8)
+            if writer is not None:
+                writer.add_scalar("train/lr", lr, global_step=epoch)
+
+        trainloader.set_epoch(epoch)
+        profiler = None
+        if args.profile_dir is not None and epoch == start_epoch:
+            from torch.profiler import ProfilerActivity, profile
+            activities = [ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            profiler = profile(activities=activities)
+            profiler.start()
+        train_loss, train_scores = run_train_epoch(
+            train_step, trainloader, lr, epoch, metric_names, writer=writer, device=device,
+            log_images=not args.light_logging, log_histograms=not args.light_logging)
+        if profiler is not None:
+            profiler.stop()
+            os.makedirs(args.profile_dir, exist_ok=True)
+            trace = os.path.join(args.profile_dir, f"{args.experiment}_epoch{epoch}.json")
+            profiler.export_chrome_trace(trace)
+            print("profiler trace written to", trace)
+
+        valid_loss, valid_scores = run_validate_epoch(eval_step, validloader, epoch, metric_names,
+                                                      writer=writer, device=device)
+
+        # divergence tripwire: the reference only logs the grad abs-max;
+        # abort instead, keeping the last weights for a post-mortem
+        if not np.isfinite(train_loss.avg):
+            snapshot(snapshot_filename, float("inf"), epoch)
+            raise RuntimeError(f"non-finite training loss at epoch {epoch}; "
+                               f"snapshot saved to {snapshot_filename}")
+
+        summary = {"epoch": epoch, "loss": train_loss.avg, "val_loss": valid_loss.avg}
+        for key, value in train_scores.items():
+            summary[key] = value.avg
+        for key, value in valid_scores.items():
+            summary["val_" + key] = value.avg
+        for key, value in summary.items():
+            train_history.setdefault(key, []).append(value)
+        print(epoch, summary)
+
+        # a new best is written at once (reference torch_train.py:435-438);
+        # --snapshot-every gates only the last-epoch snapshot
+        if valid_loss.avg < best_loss and args.snapshot_every > 0:
+            best_loss = valid_loss.avg
+            snapshot(checkpoint_filename, valid_loss.avg, epoch)
+            print("Checkpoint saved", epoch, best_loss)
+        if args.snapshot_every > 0 and ((epoch + 1) % args.snapshot_every == 0
+                                        or epoch == args.epochs - 1):
+            snapshot(snapshot_filename, valid_loss.avg, epoch)
+
+    print("Training is finished...")
+    if writer is not None:
+        writer.close()
+    write_history_csv(os.path.join(experiment_dir, args.experiment + ".csv"), train_history,
+                      append=args.resume)
+    return train_history
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,17 @@
-"""File helpers of the port (counterpart of segtpu/utils/__init__.py;
-reference lib/common.py:23-43, lib/train_utils.py:72-89). ``cv2`` is imported
-only where an image is read, so hosts without OpenCV import the package."""
+"""File, parameter and image-grid helpers of the port (counterpart of
+segtpu/utils/__init__.py; reference lib/common.py:15-43,
+lib/train_utils.py:72-89). ``cv2`` is imported only where an image is read,
+so hosts without OpenCV import the package."""
 
 from __future__ import annotations
 
 import glob
 import os
+from typing import Tuple
 
 import numpy as np
+import torch
+from torch import nn
 
 
 def auto_file(filename: str, where: str = ".") -> str:
@@ -42,3 +46,37 @@ def read_rgb(fname: str) -> np.ndarray:
     if x is None:
         raise IOError(f"cannot read image {fname}")
     return cv2.cvtColor(x, cv2.COLOR_BGR2RGB)
+
+
+def count_parameters(model: nn.Module) -> Tuple[int, int]:
+    """(total, trainable) parameter counts (reference lib/common.py:15-20),
+    with segtpu's meaning: both are the full count, whatever is frozen."""
+    total = sum(p.numel() for p in model.parameters())
+    return total, total
+
+
+def make_grid(images, nrow: int = 8, pad: int = 2, normalize: bool = True) -> np.ndarray:
+    """Tile an NCHW batch (numpy array or tensor) into one HWC float32 image,
+    min-max normalised over the batch: segtpu's ``make_grid`` of the same
+    batch in NHWC (the TensorBoard image grids, reference
+    torch_train.py:221-223)."""
+    if isinstance(images, torch.Tensor):
+        images = images.detach().float().cpu().numpy()
+    images = np.asarray(images, dtype=np.float32)
+    if images.ndim == 3:
+        images = images[:, None]
+    images = images.transpose(0, 2, 3, 1)
+    if normalize:
+        lo, hi = images.min(), images.max()
+        if hi > lo:
+            images = (images - lo) / (hi - lo)
+    n, h, w, c = images.shape
+    ncol = min(nrow, n)
+    nr = (n + ncol - 1) // ncol
+    grid = np.zeros((nr * (h + pad) + pad, ncol * (w + pad) + pad, c), np.float32)
+    for i in range(n):
+        r, cl = divmod(i, ncol)
+        y0 = r * (h + pad) + pad
+        x0 = cl * (w + pad) + pad
+        grid[y0:y0 + h, x0:x0 + w] = images[i]
+    return grid
