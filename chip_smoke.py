@@ -12,25 +12,29 @@ Phases, one JSON line each; any failure exits non-zero:
   kernel_b1    the channel-sums kernel against its plain PyTorch version
                (fp32/bf16, channels_last/NCHW/[M, C], single and pair forms, a
                ragged M, C = 37, then every BatchNorm and InPlaceABN input shape
-               of one LinkNet34 training step at batch 16, patch 512), with its
-               time, bytes, bound and torch.var_mean's time at the largest
-               shape; its time cold in L2 at each of the step's distinct
-               shapes and forms, and a model of its time per step: each of
-               those times its calls per step (84 calls), against their summed
-               bound (var_mean's sum over the 48 single-form calls beside it);
-               and two calls giving the same bits at the largest and the
-               smallest step shape. Times are device times
-               (segtpu_torch.profile_reduce.cuda_ms: a spin kernel keeps the
-               device busy while the host launches)
+               of one training step of LinkNet34, ZF_UNET and UNetABN at batch
+               16, patch 512), with its time, bytes, bound and torch.var_mean's
+               time at the largest shape (16x32x512^2) and at LinkNet34's
+               largest (16x64x256^2); its time cold in L2 at each distinct
+               shape and form, and a model of its time per step of each
+               model: each of those times its calls per step (84, 44, 18),
+               against their summed bound (var_mean's sum over the
+               single-form calls beside it); and two calls giving the same
+               bits at the largest and the smallest step shape. Times are
+               device times (segtpu_torch.profile_reduce.cuda_ms: a spin
+               kernel keeps the device busy while the host launches)
   kernel_b3    the from-output ABN backward kernel against its plain version
-               (the same cases, three activations, then the twelve InPlaceABN
-               shapes of the step), with its time, bytes and bound, the same
-               per-shape times and per-step model over its 12 calls, and the
-               repeat check
+               (the same cases, three activations, then the InPlaceABN shapes
+               of LinkNet34's and UNetABN's steps), with its time, bytes and
+               bound at the largest and at LinkNet34's largest, the same
+               per-shape times and per-step models (12 and 18 calls), and
+               the repeat check
   kernel_b2    the fused BN+activation kernel against its plain PyTorch version
                (fp32/bf16, channels_last/NCHW, three activations, a ragged
-               tail, and the twelve decoder shapes of a LinkNet34 pass at tile
-               batch 64), with its time, bytes and bound at the largest shape
+               tail, the twelve decoder shapes of a LinkNet34 pass at tile
+               batch 64, and the BatchNorm and InPlaceABN shapes of the
+               ZF_UNET and UNetABN steps), with its time, bytes and bound at
+               the largest shape and at the largest training shape
   model_parity LinkNet34 saved and reloaded through the .pth snapshot format,
                one 2x3x512x512 fp32 eval forward on the card vs the CPU
   serve        tiled inference as the submit CLI runs it (patch 512, batch 64,
@@ -46,6 +50,21 @@ Phases, one JSON line each; any failure exits non-zero:
                DeviceShapes batch, 3 warm steps then 20 timed ones; images/s,
                ms/step, peak memory, first and last loss, and the launches of
                B1, B2 and B3 per step against the layer count
+  zf_unet_parity  full-width ZF_UNET: one 1x3x256x256 fp32 eval forward on the
+               card (TF32 off) vs the CPU, then one fp32 SGD bce training step
+               on 2x3x128x128 SHAPES (dropout off), card against CPU and
+               against float64, with train_parity's gates (the updated
+               parameters' error reported, not gated)
+  train_zf_unet   segtpu's default bench config zf_unet-512 (full width, batch
+               16, patch 512, bf16 autocast, bce, SGD lr 1e-3): 3 warm steps
+               then 20 timed, as train; launches per step (44, 22, 0), no copy
+               of a BatchNorm input, the upsampling left in bf16 by
+               autocast; then 3 steps with --remat's
+               rematerialisation, printing their launches, with the running
+               statistics updated once per step
+  train_unet_abn  full-width UNetABN, batch 16, patch 512, bf16, bce_jaccard,
+               Adam: 3 warm and 5 timed steps, launches per step (18, 18, 18);
+               then 2 UNet steps (bce, SGD), launches per step (36, 18, 0)
   train_cli    the train CLI in process, in a temporary directory, three runs:
                (a) -d shapes-device -b 16 -p 512 --bf16 -o adam -e 2 (64 train
                steps and 8 validation batches an epoch), (b) -e 3 -r on the
@@ -60,6 +79,11 @@ Phases, one JSON line each; any failure exits non-zero:
                each train epoch (torch's sync debug mode: at most the
                epoch's log fetch, none per step); the CSV and both .pth
                files, the best one restored with its optimizer state
+  train_ab_cli the afterburner CLI in process, one shapes-device epoch of 8
+               steps on the frozen head that train_cli's run (a) wrote:
+               launches against steps x (120, 66, 12) + validation batches x
+               (0, 12, 0); the head's parameters as loaded, its running
+               statistics and every afterburner parameter moved
   counters     after training, every cached counter buffer of the B1/B3
                reduction holds zeros
   one_launch   a torch.profiler count: one call of B1 (either form) or B3
@@ -70,7 +94,8 @@ Phases, one JSON line each; any failure exits non-zero:
                of its kernels and copies against the epoch's span)
 
 The kernel counts are set to 0 just before each main path (serve, train,
-each train_cli run) and read just after it. Then the kernel table line, the nvidia-smi line, and last
+train_zf_unet, train_unet_abn, each train_cli run, train_ab_cli) and read
+just after it. Then the kernel table line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from a seed,
 with the normalisation statistics set from one calibration batch so that every
 layer sees activations of order one.
@@ -79,6 +104,7 @@ layer sees activations of order one.
 from __future__ import annotations
 
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -92,20 +118,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from segtpu_torch import train_cli
+from segtpu_torch import train_ab_cli, train_cli
 from segtpu_torch.augment import host as aug
 from segtpu_torch.data.inria import INRIA_MEAN, INRIA_STD
 from segtpu_torch.data.pipeline import DataLoader, Subset
 from segtpu_torch.data.shapes import DeviceShapes, ShapesDataset, to_nchw
 from segtpu_torch.inference import predict_tiled, predict_tiled_stream
 from segtpu_torch.models import get_model
-from segtpu_torch.models.layers import BatchNormTorch, InPlaceABN
+from segtpu_torch.models.layers import BatchNormTorch, InPlaceABN, upsample_nearest
 from segtpu_torch.ops import abn as abn_ops
 from segtpu_torch.ops import kernels
 from segtpu_torch.ops.abn import abn_bwd_sums_plain, abn_norm_act_plain, channel_sums_plain
 from segtpu_torch.ops.losses import get_loss
 from segtpu_torch.ops.metrics import default_metrics
-from segtpu_torch.profile_reduce import L2_FLUSH_BYTES, cuda_ms, step_norm_shapes
+from segtpu_torch.profile_reduce import NORM_LAYERS, L2_FLUSH_BYTES, cuda_ms, step_norm_shapes
 from segtpu_torch.train.checkpoint import load_snapshot, restore_snapshot, save_snapshot
 from segtpu_torch.train.optim import get_optimizer
 from segtpu_torch.train.state import make_predict_step, make_train_step
@@ -114,14 +140,25 @@ SEED = 0
 PATCH, BATCH, IMAGE_SIDE, N_IMAGES, DEPTH = 512, 64, 5000, 2, 2
 SLOPE = 0.01
 TRAIN_BATCH, TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS = 16, 1e-3, 3, 20
-# Launches per LinkNet34 training step: B1 for the 36 BatchNorm forwards, the
-# 36 BatchNorm backwards and the 12 InPlaceABN forwards; B2 for the affine of
-# the 36 BatchNorms and the 12 InPlaceABNs; B3 for the 12 InPlaceABN backwards.
-STEP_LAUNCHES = {"channel_sums": 84, "abn_norm_act": 48, "abn_bwd": 12}
+
+
+def step_launches(n_bn: int, n_abn: int) -> dict:
+    """Launches per training step of a model with ``n_bn`` BatchNorm and
+    ``n_abn`` InPlaceABN layers: B1 for each BatchNorm forward and backward
+    and each InPlaceABN forward; B2 for the affine of each BatchNorm and each
+    InPlaceABN; B3 for each InPlaceABN backward."""
+    return {"channel_sums": 2 * n_bn + n_abn, "abn_norm_act": n_bn + n_abn, "abn_bwd": n_abn}
+
+
+# LinkNet34 84, 48, 12; ZF_UNET 44, 22, 0; UNet 36, 18, 0; UNetABN 18, 18, 18
+MODEL_STEP_LAUNCHES = {name: step_launches(*n) for name, n in NORM_LAYERS.items()}
+STEP_LAUNCHES = MODEL_STEP_LAUNCHES["linknet34"]
 # Launches per eval-mode pass: B2 in the 12 InPlaceABN layers; eval-mode
 # BatchNorm is F.batch_norm over the running statistics and runs no kernel of
 # this repo, and nothing is reduced.
 EVAL_LAUNCHES = {"channel_sums": 0, "abn_norm_act": 12, "abn_bwd": 0}
+# The models whose training-step shapes the kernel phases check and time.
+KERNEL_MODELS = ("linknet34", "zf_unet", "unet_abn")
 CLI_ARGS = ["-m", "linknet34", "-l", "bce_jaccard", "-o", "adam", "-lr", "1e-3", "-b", str(TRAIN_BATCH),
             "-p", str(PATCH), "--bf16", "--no-tensorboard", "--seed", "0"]
 # Host waits for the card allowed in a train epoch: the loop's one log fetch
@@ -131,9 +168,12 @@ EPOCH_SYNCS = 8
 # Train steps and validation batches of one shapes-device epoch: 1024 and
 # 128 samples.
 CLI_STEPS, CLI_VAL_BATCHES = 1024 // TRAIN_BATCH, 128 // TRAIN_BATCH
-# The main paths that run each kernel.
-KERNEL_PATHS = {"channel_sums": ("train", "train_cli"), "abn_norm_act": ("serve", "train", "train_cli"),
-                "abn_bwd": ("train", "train_cli")}
+# The main paths, and those that run each kernel.
+PATHS = ("serve", "train", "train_zf_unet", "train_unet_abn", "train_cli", "train_ab_cli")
+KERNEL_PATHS = {
+    "channel_sums": ("train", "train_zf_unet", "train_unet_abn", "train_cli", "train_ab_cli"),
+    "abn_norm_act": PATHS,
+    "abn_bwd": ("train", "train_unet_abn", "train_cli", "train_ab_cli")}
 OPTIONAL_PACKAGES = ("pandas", "tqdm", "tensorboardX", "cv2", "sklearn", "ninja")
 # Channel sums of fp32 terms, added in two orders: |err| <= RTOL_SUM * sum |term|.
 RTOL_SUM = 1e-5
@@ -388,24 +428,32 @@ def check_one_launch(what, fns):
     return names
 
 
-def step_sum(card, calls, make, time_kernel, time_plain, time_library, bytes_of, ops_of, flush):
-    """A model of one kernel's time over the calls of one training step, not
-    a measurement in the step (that is ``profile_train``'s). ``calls``:
-    Counter of (shape, form) -> calls per step, from hooks on the layers;
-    ``make(shape, form)`` gives the inputs of ``time_*(inputs, form)``. Each
-    distinct call is timed once, cold in L2 (median of 20), and multiplied
-    by its calls per step. Returns the sums and the per-shape rows."""
-    rows = []
-    for (shape, form), count in sorted(calls.items()):
+def time_shapes(card, keys, make, time_kernel, time_plain, time_library, bytes_of, ops_of, flush):
+    """Each distinct call (shape, form) of ``keys`` timed once, cold in L2
+    (medians of 20): ``{(shape, form): row}``. ``make(shape, form)`` gives
+    the inputs of ``time_*(inputs, form)``."""
+    rows = {}
+    for shape, form in sorted(keys):
         inputs = make(shape, form)
         n, c = int(np.prod(shape)), shape[1]
         lib = time_library(inputs, form)
-        rows.append(dict(shape=list(shape), form=form, calls=count, **timing_entry(
+        rows[(shape, form)] = dict(shape=list(shape), form=form, **timing_entry(
             bytes_of(n, c, form), ops_of(n, form), card,
             ms=cuda_ms(lambda: time_kernel(inputs, form), flush=flush),
             plain_ms=cuda_ms(lambda: time_plain(inputs, form), flush=flush),
-            library_ms=None if lib is None else cuda_ms(lib, flush=flush))))
+            library_ms=None if lib is None else cuda_ms(lib, flush=flush)))
         del inputs
+    return rows
+
+
+def step_sum(timed, calls):
+    """A model of one kernel's time over the calls of one training step, not
+    a measurement in the step (that is ``profile_train``'s). ``calls``:
+    Counter of (shape, form) -> calls per step, from hooks on the layers;
+    ``timed``: :func:`time_shapes`' rows. Each distinct call's cold time is
+    multiplied by its calls per step. Returns the sums and the per-shape
+    rows."""
+    rows = [dict(timed[key], calls=count) for key, count in sorted(calls.items())]
     total = dict(calls_modelled=sum(r["calls"] for r in rows))
     for key, name in (("ms", "ms_modelled_cold"), ("plain_ms", "plain_ms_modelled_cold"),
                       ("bound_ms", "bound_ms_modelled"), ("bytes", "bytes_modelled")):
@@ -429,9 +477,19 @@ def _b1_case(a, b):
                        f"{a.dtype} {tuple(a.shape)} {a.stride()} pair={b is not None}")
 
 
+def _unique(norm_shapes, kinds):
+    """The distinct input shapes of the layers of ``kinds`` ("bn", "abn")
+    over every model's step."""
+    return sorted({s for shapes in norm_shapes.values() for k in kinds for s in shapes[k]})
+
+
+def _largest(shapes):
+    return max(shapes, key=lambda s: int(np.prod(s)))
+
+
 def phase_kernel_b1(card: str, norm_shapes):
-    """B1 against its plain version, then its time at the largest shape of
-    the training step."""
+    """B1 against its plain version, then its time at the largest shapes of
+    the training steps. ``norm_shapes``: model -> :func:`step_norm_shapes`."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     n_cases, max_err, max_rel = 0, 0.0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -444,28 +502,35 @@ def phase_kernel_b1(card: str, norm_shapes):
                 b = cuda_input(shape, dtype, layout, g, mean=-0.2, std=1.0) if pair else None
                 err, rel = _b1_case(a, b)
                 max_err, max_rel, n_cases = max(max_err, err), max(max_rel, rel), n_cases + 1
-    unique = sorted(set(norm_shapes["bn"] + norm_shapes["abn"]))
+    unique = _unique(norm_shapes, ("bn", "abn"))
     for shape in unique:
         for pair in (False, True):
             a = cuda_input(shape, torch.bfloat16, "channels_last", g)
             b = cuda_input(shape, torch.bfloat16, "channels_last", g, 0.0, 1.0) if pair else None
             err, rel = _b1_case(a, b)
             max_err, max_rel, n_cases = max(max_err, err), max(max_rel, rel), n_cases + 1
+            del a, b
 
-    big = max(unique, key=lambda s: int(np.prod(s)))
-    small = min(unique, key=lambda s: int(np.prod(s)))
+    def largest_timing(shape):
+        a = cuda_input(shape, torch.bfloat16, "channels_last", g)
+        b = cuda_input(shape, torch.bfloat16, "channels_last", g, 0.0, 1.0)
+        n, c = a.numel(), shape[1]
+        return dict(shape=list(shape), dtype="bfloat16", layout="channels_last", single=timing_entry(
+            n * 2 + 2 * 4 * c, 3 * n, card,
+            ms=cuda_ms(lambda: kernels.channel_sums_cuda(a)),
+            plain_ms=cuda_ms(lambda: channel_sums_plain(a)),
+            library_ms=cuda_ms(lambda: torch.var_mean(a, dim=(0, 2, 3), correction=0))),
+            pair=timing_entry(
+            2 * n * 2 + 2 * 4 * c, 3 * n, card,
+            ms=cuda_ms(lambda: kernels.channel_sums_cuda(a, b)),
+            plain_ms=cuda_ms(lambda: channel_sums_plain(a, b)), library_ms=None))
+
+    big, small = _largest(unique), min(unique, key=lambda s: int(np.prod(s)))
+    largest = largest_timing(big)
+    largest_linknet34 = largest_timing(_largest(norm_shapes["linknet34"]["bn"]
+                                                + norm_shapes["linknet34"]["abn"]))
     a = cuda_input(big, torch.bfloat16, "channels_last", g)
     b = cuda_input(big, torch.bfloat16, "channels_last", g, 0.0, 1.0)
-    n, c = a.numel(), big[1]
-    single = timing_entry(
-        n * 2 + 2 * 4 * c, 3 * n, card,
-        ms=cuda_ms(lambda: kernels.channel_sums_cuda(a)),
-        plain_ms=cuda_ms(lambda: channel_sums_plain(a)),
-        library_ms=cuda_ms(lambda: torch.var_mean(a, dim=(0, 2, 3), correction=0)))
-    pair = timing_entry(
-        2 * n * 2 + 2 * 4 * c, 3 * n, card,
-        ms=cuda_ms(lambda: kernels.channel_sums_cuda(a, b)),
-        plain_ms=cuda_ms(lambda: channel_sums_plain(a, b)), library_ms=None)
     sa = cuda_input(small, torch.bfloat16, "channels_last", g)
     sb = cuda_input(small, torch.bfloat16, "channels_last", g, 0.0, 1.0)
     repeat = check_repeat("channel_sums", {
@@ -475,12 +540,14 @@ def phase_kernel_b1(card: str, norm_shapes):
         "smallest pair": lambda: kernels.channel_sums_cuda(sa, sb)})
     del a, b, sa, sb
 
-    calls = Counter()
-    for shape in norm_shapes["bn"]:
-        calls[(shape, "single")] += 1  # forward statistics
-        calls[(shape, "pair")] += 1    # backward (sum g, sum g*x)
-    for shape in norm_shapes["abn"]:
-        calls[(shape, "single")] += 1
+    calls = {}
+    for model, shapes in norm_shapes.items():
+        calls[model] = Counter()
+        for shape in shapes["bn"]:
+            calls[model][(shape, "single")] += 1  # forward statistics
+            calls[model][(shape, "pair")] += 1    # backward (sum g, sum g*x)
+        for shape in shapes["abn"]:
+            calls[model][(shape, "single")] += 1
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
 
     def make(shape, form):
@@ -488,8 +555,8 @@ def phase_kernel_b1(card: str, norm_shapes):
         return x, (cuda_input(shape, torch.bfloat16, "channels_last", g, 0.0, 1.0)
                    if form == "pair" else None)
 
-    per_step, per_shape = step_sum(
-        card, calls, make,
+    timed = time_shapes(
+        card, set().union(*calls.values()), make,
         lambda xy, form: kernels.channel_sums_cuda(*xy),
         lambda xy, form: channel_sums_plain(*xy),
         lambda xy, form: None if form == "pair" else (
@@ -497,16 +564,19 @@ def phase_kernel_b1(card: str, norm_shapes):
         lambda n, c, form: (2 if form == "pair" else 1) * n * 2 + 2 * 4 * c,
         lambda n, form: 3 * n, flush)
     del flush
-    if per_step["calls_modelled"] != STEP_LAUNCHES["channel_sums"]:
-        raise AssertionError(f"kernel_b1: {per_step['calls_modelled']} calls per step, expected "
-                             f"{STEP_LAUNCHES['channel_sums']}")
+    per_step, per_shape = {}, {}
+    for model, model_calls in calls.items():
+        per_step[model], per_shape[model] = step_sum(timed, model_calls)
+        if per_step[model]["calls_modelled"] != MODEL_STEP_LAUNCHES[model]["channel_sums"]:
+            raise AssertionError(f"kernel_b1: {per_step[model]['calls_modelled']} calls per "
+                                 f"{model} step, expected "
+                                 f"{MODEL_STEP_LAUNCHES[model]['channel_sums']}")
     beats = {"x".join(map(str, r["shape"])): r["ms"] < r["library_ms"]
-             for r in per_shape if r["form"] == "single"}
+             for r in timed.values() if r["form"] == "single"}
     emit("kernel_b1", cases=n_cases, step_shapes=len(unique), max_abs_err=max_err,
          max_err_over_sum_abs=max_rel,
          tolerance=f"per channel |err| <= {RTOL_SUM} * sum|term| + 1e-6",
-         largest=dict(shape=list(big), dtype="bfloat16", layout="channels_last",
-                      single=single, pair=pair),
+         largest=largest, largest_linknet34=largest_linknet34,
          per_step=per_step, per_shape=per_shape, beats_var_mean_single=beats,
          repeat_bit_identical=repeat,
          timing="device time (a spin kernel ahead of each run); largest: warm medians of "
@@ -514,7 +584,8 @@ def phase_kernel_b1(card: str, norm_shapes):
                 "each per_shape time times its calls per step",
          library="torch.var_mean(x, dim=(0, 2, 3), correction=0) for the single form; "
                  "none for the pair form")
-    return dict(single, shape=list(big), per_step=per_step), max_err
+    return dict(largest["single"], shape=list(big), pair=largest["pair"],
+                largest_linknet34=largest_linknet34, per_step=per_step), max_err
 
 
 def _b3_case(z, g, gamma, beta, act):
@@ -545,7 +616,7 @@ def _abn_output(shape, dtype, layout, act, g):
 
 def phase_kernel_b3(card: str, norm_shapes):
     """B3 against its plain version, then its time at the largest InPlaceABN
-    shape of the training step."""
+    shapes of the training steps."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 20)
     n_cases, max_err, max_rel = 0, 0.0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -555,54 +626,62 @@ def phase_kernel_b3(card: str, norm_shapes):
                                   ((4, 64, 32, 32), "nchw"), ((2, 24, 17, 9), "unaligned")):
                 err, rel = _b3_case(*_abn_output(shape, dtype, layout, act, g), act)
                 max_err, max_rel, n_cases = max(max_err, err), max(max_rel, rel), n_cases + 1
-    unique = sorted(set(norm_shapes["abn"]))
+    unique = _unique(norm_shapes, ("abn",))
     for shape in unique:
         err, rel = _b3_case(*_abn_output(shape, torch.bfloat16, "channels_last", "leaky_relu", g),
                             "leaky_relu")
         max_err, max_rel, n_cases = max(max_err, err), max(max_rel, rel), n_cases + 1
 
-    big = max(unique, key=lambda s: int(np.prod(s)))
-    small = min(unique, key=lambda s: int(np.prod(s)))
-    z, grad, gamma, beta = _abn_output(big, torch.bfloat16, "channels_last", "leaky_relu", g)
-    n, c = z.numel(), big[1]
-
     def b3_bytes(n, c, form):
         return 2 * n * 2 + 2 * 4 * c + 2 * 4 * c  # z, g read; gamma, beta read; two sums written
 
-    largest = timing_entry(
-        b3_bytes(n, c, None), 8 * n, card,
-        ms=cuda_ms(lambda: kernels.abn_bwd_sums_cuda(z, grad, gamma, beta, "leaky_relu", SLOPE)),
-        plain_ms=cuda_ms(lambda: abn_bwd_sums_plain(z, grad, gamma, beta, "leaky_relu", SLOPE)),
-        library_ms=None)
+    def largest_timing(shape):
+        z, grad, gamma, beta = _abn_output(shape, torch.bfloat16, "channels_last", "leaky_relu", g)
+        n, c = z.numel(), shape[1]
+        return dict(shape=list(shape), dtype="bfloat16", layout="channels_last",
+                    activation="leaky_relu", **timing_entry(
+            b3_bytes(n, c, None), 8 * n, card,
+            ms=cuda_ms(lambda: kernels.abn_bwd_sums_cuda(z, grad, gamma, beta, "leaky_relu", SLOPE)),
+            plain_ms=cuda_ms(lambda: abn_bwd_sums_plain(z, grad, gamma, beta, "leaky_relu", SLOPE)),
+            library_ms=None))
+
+    big, small = _largest(unique), min(unique, key=lambda s: int(np.prod(s)))
+    largest = largest_timing(big)
+    largest_linknet34 = largest_timing(_largest(norm_shapes["linknet34"]["abn"]))
+    z, grad, gamma, beta = _abn_output(big, torch.bfloat16, "channels_last", "leaky_relu", g)
     sz, sg, sgamma, sbeta = _abn_output(small, torch.bfloat16, "channels_last", "leaky_relu", g)
     repeat = check_repeat("abn_bwd_sums", {
         "largest": lambda: kernels.abn_bwd_sums_cuda(z, grad, gamma, beta, "leaky_relu", SLOPE),
         "smallest": lambda: kernels.abn_bwd_sums_cuda(sz, sg, sgamma, sbeta, "leaky_relu", SLOPE)})
     del z, grad, sz, sg
 
+    calls = {model: Counter((shape, "leaky_relu") for shape in shapes["abn"])
+             for model, shapes in norm_shapes.items() if shapes["abn"]}
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    per_step, per_shape = step_sum(
-        card, Counter((shape, "leaky_relu") for shape in norm_shapes["abn"]),
+    timed = time_shapes(
+        card, set().union(*calls.values()),
         lambda shape, act: _abn_output(shape, torch.bfloat16, "channels_last", act, g),
         lambda args, act: kernels.abn_bwd_sums_cuda(*args, act, SLOPE),
         lambda args, act: abn_bwd_sums_plain(*args, act, SLOPE),
         lambda args, act: None, b3_bytes, lambda n, act: 8 * n, flush)
     del flush
-    if per_step["calls_modelled"] != STEP_LAUNCHES["abn_bwd"]:
-        raise AssertionError(f"kernel_b3: {per_step['calls_modelled']} calls per step, expected "
-                             f"{STEP_LAUNCHES['abn_bwd']}")
+    per_step, per_shape = {}, {}
+    for model, model_calls in calls.items():
+        per_step[model], per_shape[model] = step_sum(timed, model_calls)
+        if per_step[model]["calls_modelled"] != MODEL_STEP_LAUNCHES[model]["abn_bwd"]:
+            raise AssertionError(f"kernel_b3: {per_step[model]['calls_modelled']} calls per "
+                                 f"{model} step, expected {MODEL_STEP_LAUNCHES[model]['abn_bwd']}")
     emit("kernel_b3", cases=n_cases, step_shapes=len(unique), max_abs_err=max_err,
          max_err_over_sum_abs=max_rel,
          tolerance=f"per channel |err| <= {RTOL_SUM} * sum|term| + 1e-6",
-         largest=dict(largest, shape=list(big), dtype="bfloat16", layout="channels_last",
-                      activation="leaky_relu"),
+         largest=largest, largest_linknet34=largest_linknet34,
          per_step=per_step, per_shape=per_shape, repeat_bit_identical=repeat,
          library="none: no single PyTorch call computes these sums")
-    return dict(largest, shape=list(big), per_step=per_step), max_err
+    return dict(largest, largest_linknet34=largest_linknet34, per_step=per_step), max_err
 
 
-def phase_kernel_b2(card: str):
-    """The kernel against its plain version, then its time at the main path's shapes."""
+def phase_kernel_b2(card: str, norm_shapes):
+    """The kernel against its plain version, then its time at the main paths' shapes."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     tol = {torch.float32: (0.0, 1e-6), torch.bfloat16: (8e-3, 0.0)}
 
@@ -622,8 +701,12 @@ def phase_kernel_b2(card: str):
                 max_err[dtype] = max(max_err[dtype], err)
                 n_cases += 1
     shapes = decoder_abn_shapes(BATCH, PATCH)
-    for shape in shapes:
-        err = _check(*inputs(shape, torch.bfloat16, "channels_last"), "leaky_relu", tol[torch.bfloat16])
+    # the training steps: the BatchNorm affine (no activation), InPlaceABN (leaky_relu)
+    train_cases = sorted({(s, "none") for m in ("zf_unet", "unet_abn") for s in norm_shapes[m]["bn"]}
+                         | {(s, "leaky_relu") for m in ("zf_unet", "unet_abn")
+                            for s in norm_shapes[m]["abn"]})
+    for shape, act in [(s, "leaky_relu") for s in shapes] + train_cases:
+        err = _check(*inputs(shape, torch.bfloat16, "channels_last"), act, tol[torch.bfloat16])
         max_err[torch.bfloat16] = max(max_err[torch.bfloat16], err)
         n_cases += 1
     big = max(shapes, key=lambda s: int(np.prod(s)))
@@ -633,33 +716,42 @@ def phase_kernel_b2(card: str):
 
     bw, _, rate_src = card_rates(card)
 
-    def timing(shape):
+    def timing(shape, act="leaky_relu"):
         x, scale, shift = inputs(shape, torch.bfloat16, "channels_last")
         n, c = x.numel(), shape[1]
         # x read, out written; multiply, add, select per element
-        return dict(shape=list(shape), **timing_entry(
+        return dict(shape=list(shape), activation=act, **timing_entry(
             2 * n * x.element_size() + 2 * 4 * c, 3 * n, card,
-            ms=cuda_ms(lambda: kernels.abn_norm_act_cuda(x, scale, shift, "leaky_relu", SLOPE)),
-            plain_ms=cuda_ms(lambda: abn_norm_act_plain(x, scale, shift, "leaky_relu", SLOPE))))
+            ms=cuda_ms(lambda: kernels.abn_norm_act_cuda(x, scale, shift, act, SLOPE)),
+            plain_ms=cuda_ms(lambda: abn_norm_act_plain(x, scale, shift, act, SLOPE))))
 
     per_shape = [timing(s) for s in shapes]
     largest = per_shape[shapes.index(big)]
+    largest_training = timing(_largest([s for s, _ in train_cases]), "none")
     emit("kernel_b2", cases=n_cases, max_abs_err_fp32=max_err[torch.float32],
          max_abs_err_bf16=max_err[torch.bfloat16], tolerance={"fp32": "atol 1e-6",
                                                                "bf16": "rtol 8e-3 (one bf16 ulp)"},
          rate_source=rate_src, hbm_bytes_per_s=bw, largest=largest,
+         largest_training=largest_training, training_shapes=len(train_cases),
          per_forward=dict(launches=len(shapes), ms=sum(t["ms"] for t in per_shape),
                           plain_ms=sum(t["plain_ms"] for t in per_shape),
                           bound_ms=sum(t["bound_ms"] for t in per_shape),
                           bytes=sum(t["bytes"] for t in per_shape)),
          per_shape=per_shape)
-    return largest, max(max_err.values())
+    return dict(largest, largest_training=largest_training), max(max_err.values())
 
 
-def seeded_model(device, state_dict=None):
-    model = get_model("linknet34", patch_size=PATCH, device=device, seed=SEED)
+def seeded_model(device, state_dict=None, name="linknet34"):
+    model = get_model(name, patch_size=PATCH, device=device, seed=SEED)
     if state_dict is not None:
         model.load_state_dict(state_dict)
+    return model
+
+
+def no_dropout(model):
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout2d):
+            m.p = 0.0
     return model
 
 
@@ -792,35 +884,44 @@ def _grad_summary(errs):
                 worst=[dict(name=n, err=e) for e, n in errs[:3]])
 
 
-def phase_train_parity():
-    """One SGD training step of the seeded LinkNet34 on 2x3x128x128 SHAPES
-    (dropout off): fp32 on the card (TF32 off) against fp32 on the CPU, and
-    both against the same step in float64 on the CPU."""
-    x, y = to_nchw([ShapesDataset(2, 128, seed=SEED + 30)[i] for i in range(2)])
+def parity_runs(name, loss_name, x, y, variants):
+    """One SGD step of the seeded ``name`` model, dropout off, per variant
+    ``(key, device, dtype)`` (key ``card_no_cudnn`` turns cuDNN off):
+    ``{key: (loss, gradients, state, launches)}``, launches on the card."""
     runs = {}
     with fp32_convolutions():
-        for key, device, dtype in (("card", "cuda", torch.float32), ("card_no_cudnn", "cuda", torch.float32),
-                                   ("cpu", "cpu", torch.float32), ("cpu_f64", "cpu", torch.float64)):
+        for key, device, dtype in variants:
             torch.backends.cudnn.enabled = key != "card_no_cudnn"
-            model = seeded_model(device).to(dtype)
-            model.finaldrop1.p = 0.0
+            model = no_dropout(seeded_model(device, name=name).to(dtype))
             step = make_train_step(model, get_optimizer("sgd", model.parameters(), PARITY_LR),
-                                   get_loss("bce_jaccard"), default_metrics())
+                                   get_loss(loss_name), default_metrics())
             kernels.reset_launch_counts()
             logs = step(x.to(device, dtype), y.to(device, dtype), PARITY_LR)
-            if key == "card":
+            launches = None
+            if device == "cuda":
                 torch.cuda.synchronize()
                 launches = kernels.launch_counts()
             runs[key] = (float(logs["loss"]),
                          {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()},
-                         {k: v.detach().cpu() for k, v in model.state_dict().items()})
-    (loss_g, grads_g, state_g), (loss_c, grads_c, state_c) = runs["card"], runs["cpu"]
+                         {k: v.detach().cpu() for k, v in model.state_dict().items()}, launches)
+    return runs
+
+
+def parity_verdict(runs, expected_launches, gate_params=True):
+    """The card's run against the CPU's and the float64 run by PARITY_TOL:
+    ``(fields, ok)``. ``gate_params=False`` reports the SGD-updated
+    parameters' error without gating it: it is lr times the gradient error,
+    which the gradient gates hold relative to each tensor's scale."""
+    (loss_g, grads_g, state_g, launches), (loss_c, grads_c, state_c, _) = runs["card"], runs["cpu"]
     grads_64 = runs["cpu_f64"][1]
     t = PARITY_TOL
-    vs_cpu = _grad_summary(_grad_errors(grads_g, grads_c))
-    vs_f64 = _grad_summary(_grad_errors(grads_g, grads_64))
-    cpu_vs_f64 = _grad_summary(_grad_errors(grads_c, grads_64))
-    no_cudnn_vs_f64 = _grad_summary(_grad_errors(runs["card_no_cudnn"][1], grads_64))
+    fields = dict(loss_card=loss_g, loss_cpu=loss_c, loss_cpu_f64=runs["cpu_f64"][0],
+                  grad_err_card_vs_cpu=_grad_summary(_grad_errors(grads_g, grads_c)),
+                  grad_err_card_vs_f64=_grad_summary(_grad_errors(grads_g, grads_64)),
+                  grad_err_cpu_vs_f64=_grad_summary(_grad_errors(grads_c, grads_64)))
+    if "card_no_cudnn" in runs:
+        fields["grad_err_card_no_cudnn_vs_f64"] = _grad_summary(
+            _grad_errors(runs["card_no_cudnn"][1], grads_64))
     stats_err, params_err = 0.0, 0.0
     stats_ok = True
     for k, v in state_c.items():
@@ -832,62 +933,166 @@ def phase_train_parity():
             stats_ok &= bool((err <= t["stats_atol"] + t["stats_rtol"] * v.abs()).all())
         else:
             params_err = max(params_err, float((state_g[k] - v).abs().max()))
-    grads_ok = all(s["median"] <= t["grad_median"] and s["max"] <= t["grad_max"]
-                   for s in (vs_cpu, vs_f64))
+    grads_ok = all(fields[k]["median"] <= t["grad_median"] and fields[k]["max"] <= t["grad_max"]
+                   for k in ("grad_err_card_vs_cpu", "grad_err_card_vs_f64"))
     ok = (abs(loss_g - loss_c) <= t["loss_rtol"] * abs(loss_c) and np.isfinite(loss_g)
-          and grads_ok and stats_ok and params_err <= t["params_atol"]
-          and launches == STEP_LAUNCHES)
-    emit("train_parity", input=[2, 3, 128, 128], optimizer="sgd", lr=PARITY_LR,
-         loss_card=loss_g, loss_cpu=loss_c, loss_cpu_f64=runs["cpu_f64"][0],
-         grad_err_card_vs_cpu=vs_cpu, grad_err_card_vs_f64=vs_f64,
-         grad_err_cpu_vs_f64=cpu_vs_f64, grad_err_card_no_cudnn_vs_f64=no_cudnn_vs_f64,
-         max_running_stat_err=stats_err,
-         max_param_err=params_err, launches=launches, tolerance=t, ok=bool(ok))
+          and grads_ok and stats_ok and (params_err <= t["params_atol"] or not gate_params)
+          and launches == expected_launches)
+    fields.update(max_running_stat_err=stats_err, max_param_err=params_err, launches=launches,
+                  expected_launches=expected_launches, tolerance=t)
+    return fields, bool(ok)
+
+
+def phase_train_parity():
+    """One SGD training step of the seeded LinkNet34 on 2x3x128x128 SHAPES
+    (dropout off): fp32 on the card (TF32 off) against fp32 on the CPU, and
+    both against the same step in float64 on the CPU."""
+    x, y = to_nchw([ShapesDataset(2, 128, seed=SEED + 30)[i] for i in range(2)])
+    runs = parity_runs("linknet34", "bce_jaccard", x, y, (
+        ("card", "cuda", torch.float32), ("card_no_cudnn", "cuda", torch.float32),
+        ("cpu", "cpu", torch.float32), ("cpu_f64", "cpu", torch.float64)))
+    fields, ok = parity_verdict(runs, STEP_LAUNCHES)
+    emit("train_parity", input=[2, 3, 128, 128], optimizer="sgd", lr=PARITY_LR, **fields, ok=ok)
     if not ok:
         raise AssertionError("train_parity failed")
 
 
-def phase_train():
-    """The training path: full-width LinkNet34 training steps on the card."""
-    model = seeded_model("cuda")
-    opt = get_optimizer("adam", model.parameters(), TRAIN_LR)
-    step = make_train_step(model, opt, get_loss("bce_jaccard"), default_metrics(), bf16=True)
+def phase_zf_unet_parity():
+    """Full-width ZF_UNET, calibrated on the CPU: one 1x3x256x256 fp32 eval
+    forward on the card (TF32 off) against the CPU, then one SGD bce step on
+    2x3x128x128 SHAPES (dropout off), card against CPU and float64."""
+    rng = np.random.default_rng(SEED + 60)
+    cpu_model = seeded_model("cpu", name="zf_unet")
+    calibrate_norms(cpu_model, torch.from_numpy(rng.standard_normal((2, 3, 256, 256), np.float32) * 0.5))
+    gpu_model = seeded_model("cuda", cpu_model.state_dict(), name="zf_unet")
+    x = torch.from_numpy(rng.standard_normal((1, 3, 256, 256), np.float32) * 0.5)
+    with fp32_convolutions(), torch.inference_mode():
+        got = gpu_model(x.cuda().contiguous(memory_format=torch.channels_last)).cpu()
+        want = cpu_model(x)
+    prob_err = (torch.sigmoid(got) - torch.sigmoid(want)).abs().max().item()
+    forward_ok = got.shape == (1, 1, 256, 256) and bool(torch.isfinite(got).all()) and prob_err <= 1e-3
+
+    xs, ys = to_nchw([ShapesDataset(2, 128, seed=SEED + 31)[i] for i in range(2)])
+    runs = parity_runs("zf_unet", "bce", xs, ys, (
+        ("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+        ("cpu_f64", "cpu", torch.float64)))
+    # ZF_UNET's gradients are larger than LinkNet34's in absolute terms:
+    # lr 0.01 times a gradient error within the gates moves a parameter by
+    # about 6e-6 on an H100, above LinkNet34's params_atol of 1e-6
+    fields, step_ok = parity_verdict(runs, MODEL_STEP_LAUNCHES["zf_unet"], gate_params=False)
+    emit("zf_unet_parity", forward_input=[1, 3, 256, 256],
+         max_abs_err_logits=(got - want).abs().max().item(), max_abs_err_probs=prob_err,
+         forward_tolerance="probs atol 1e-3", logit_std=want.std().item(), forward_ok=forward_ok,
+         step_input=[2, 3, 128, 128], optimizer="sgd", lr=PARITY_LR, **fields, step_ok=step_ok,
+         ok=forward_ok and step_ok)
+    if not (forward_ok and step_ok):
+        raise AssertionError("zf_unet_parity failed")
+
+
+def train_run(name, loss_name, optimizer, warmup, steps, remat=False):
+    """``warmup`` then ``steps`` timed full-width training steps of the
+    seeded ``name`` model at batch 16, patch 512, bf16 autocast, lr 1e-3, on
+    one fixed DeviceShapes batch. The launch counts and the copies of
+    BatchNorm inputs (``_dense``) are set to 0 just before the timed steps
+    and read just after them."""
+    model = seeded_model("cuda", name=name)
+    if remat:
+        model.remat = True
+    opt = get_optimizer(optimizer, model.parameters(), TRAIN_LR)
+    step = make_train_step(model, opt, get_loss(loss_name), default_metrics(), bf16=True)
     x, y = DeviceShapes(PATCH, device="cuda").batch(
         TRAIN_BATCH, torch.Generator(device="cuda").manual_seed(SEED + 40))
     losses = []
     t0 = time.perf_counter()
-    for _ in range(TRAIN_WARMUP):
+    for _ in range(warmup):
         losses.append(step(x, y, TRAIN_LR)["loss"])
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    abn_ops._dense.copies = 0
     t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         logs = step(x, y, TRAIN_LR)
         losses.append(logs["loss"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-
+    tracked = sorted({int(m.num_batches_tracked) for m in model.modules()
+                      if isinstance(m, BatchNormTorch)})
     losses = [float(v) for v in losses]
-    logs = {k: float(v) for k, v in logs.items()}
-    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
-    ok = (all(np.isfinite(losses)) and losses[-1] < losses[0]
-          and per_step == {k: float(v) for k, v in STEP_LAUNCHES.items()}
-          and np.isfinite(logs["grad_absmax"]))
-    emit("train", model="linknet34", batch=TRAIN_BATCH, patch=PATCH, dtype="bf16 autocast",
-         loss="bce_jaccard", optimizer="adam", lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
-         steps=TRAIN_STEPS, images_per_s=TRAIN_BATCH * TRAIN_STEPS / seconds,
-         ms_per_step=seconds * 1e3 / TRAIN_STEPS, seconds=seconds, warm_s=warm_s,
-         max_memory_allocated=peak, first_loss=losses[0], last_loss=losses[-1],
-         losses=losses, last_logs=logs, launches=launches, launches_per_step=per_step,
-         expected_launches_per_step=STEP_LAUNCHES, ok=bool(ok))
+    return dict(model=name, batch=TRAIN_BATCH, patch=PATCH, dtype="bf16 autocast", loss=loss_name,
+                optimizer=optimizer, lr=TRAIN_LR, remat=remat, warmup_steps=warmup, steps=steps,
+                images_per_s=TRAIN_BATCH * steps / seconds, ms_per_step=seconds * 1e3 / steps,
+                seconds=seconds, warm_s=warm_s, max_memory_allocated=torch.cuda.max_memory_allocated(),
+                first_loss=losses[0], last_loss=losses[-1], losses=losses,
+                last_logs={k: float(v) for k, v in logs.items()}, launches=launches,
+                launches_per_step={k: v / steps for k, v in launches.items()},
+                dense_copies=abn_ops._dense.copies, num_batches_tracked=tracked)
+
+
+def _run_ok(run, expected_per_step, decreasing=True):
+    """Finite losses, the last below the first (``decreasing``), launches per
+    step as the layer count, no copy of a BatchNorm input."""
+    return (all(np.isfinite(run["losses"])) and (run["losses"][-1] < run["losses"][0]
+                                                 or not decreasing)
+            and run["launches_per_step"] == {k: float(v) for k, v in expected_per_step.items()}
+            and np.isfinite(run["last_logs"]["grad_absmax"]) and run["dense_copies"] == 0)
+
+
+def phase_train():
+    """The training path: full-width LinkNet34 training steps on the card."""
+    run = train_run("linknet34", "bce_jaccard", "adam", TRAIN_WARMUP, TRAIN_STEPS)
+    ok = _run_ok(run, STEP_LAUNCHES)
+    emit("train", **run, expected_launches_per_step=STEP_LAUNCHES, ok=ok)
     if not ok:
         raise AssertionError("train checks failed")
-    return launches, seconds * 1e3 / TRAIN_STEPS
+    return run["launches"], run["ms_per_step"]
+
+
+def phase_train_zf_unet(smi: str):
+    """segtpu's default bench config, zf_unet-512, then a few steps under
+    ``--remat``'s rematerialisation."""
+    run = train_run("zf_unet", "bce", "sgd", TRAIN_WARMUP, TRAIN_STEPS)
+    expected = MODEL_STEP_LAUNCHES["zf_unet"]
+    # the upsampling stays in bf16 under autocast (whose fp32 list holds it)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        up_dtype = upsample_nearest(torch.zeros(1, 4, 2, 2, device="cuda", dtype=torch.bfloat16)).dtype
+    remat = train_run("zf_unet", "bce", "sgd", 1, 2, remat=True)
+    remat_ok = (all(np.isfinite(remat["losses"])) and remat["num_batches_tracked"] == [3]
+                and remat["dense_copies"] == 0)
+    ok = _run_ok(run, expected) and remat_ok and up_dtype == torch.bfloat16
+    emit("train_zf_unet", card=smi, config="zf_unet-512", **run,
+         upsample_dtype_under_autocast=str(up_dtype),
+         expected_launches_per_step=expected,
+         remat_run={k: remat[k] for k in ("steps", "ms_per_step", "max_memory_allocated", "losses",
+                                      "launches_per_step", "num_batches_tracked",
+                                      "dense_copies")},
+         remat_note="launches per step under remat include the recomputed forwards; "
+                    "num_batches_tracked after 3 steps must be 3", ok=bool(ok))
+    if not ok:
+        raise AssertionError("train_zf_unet checks failed")
+    return run["launches"]
+
+
+def phase_train_unet_abn(smi: str):
+    """Full-width UNetABN steps (B1, B2, B3 on the UNet family), then two UNet
+    steps for its launch counts."""
+    run = train_run("unet_abn", "bce_jaccard", "adam", TRAIN_WARMUP, 5)
+    plain = train_run("unet", "bce", "sgd", 1, 2)
+    ok = (_run_ok(run, MODEL_STEP_LAUNCHES["unet_abn"])
+          and _run_ok(plain, MODEL_STEP_LAUNCHES["unet"], decreasing=False))
+    emit("train_unet_abn", card=smi, **run,
+         expected_launches_per_step=MODEL_STEP_LAUNCHES["unet_abn"],
+         unet={k: plain[k] for k in ("loss", "optimizer", "steps", "ms_per_step", "losses",
+                                     "launches_per_step", "dense_copies")},
+         unet_expected_launches_per_step=MODEL_STEP_LAUNCHES["unet"], ok=bool(ok))
+    if not ok:
+        raise AssertionError("train_unet_abn checks failed")
+    launches = Counter(run["launches"])
+    launches.update(plain["launches"])
+    return dict(launches)
 
 
 class EpochTimer:
@@ -940,9 +1145,12 @@ class EpochTimer:
         return out
 
 
-def cli_run(label, argv, train_steps, val_batches, step_ms, event_epoch=None):
-    """One in-process run of the train CLI with its launches, times and
-    peak memory; fails unless the launches are the layer count."""
+def cli_run(label, argv, train_steps, val_batches, step_ms, event_epoch=None,
+            main=train_cli.main, step_launches=STEP_LAUNCHES, eval_launches=EVAL_LAUNCHES):
+    """One in-process run of the train CLI (or of ``main``, a trainer built
+    on it) with its launches, times and peak memory; fails unless the
+    launches are the layer count: ``step_launches`` per train step and
+    ``eval_launches`` per validation batch."""
     timer = EpochTimer(event_epoch)
     train_cli.run_train_epoch, train_cli.run_validate_epoch = timer.train, timer.validate
     torch.cuda.synchronize()
@@ -950,14 +1158,14 @@ def cli_run(label, argv, train_steps, val_batches, step_ms, event_epoch=None):
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        history = train_cli.main(argv)
+        history = main(argv)
     finally:
         train_cli.run_train_epoch, train_cli.run_validate_epoch = timer.run_train, timer.run_validate
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    expected = {k: train_steps * STEP_LAUNCHES[k] + val_batches * EVAL_LAUNCHES[k]
-                for k in STEP_LAUNCHES}
+    expected = {k: train_steps * step_launches[k] + val_batches * eval_launches[k]
+                for k in step_launches}
     steps_per_epoch = train_steps / len(timer.train_s)
     out = dict(run=label, argv=argv, epochs=history["epoch"], loss=history["loss"],
                val_loss=history["val_loss"], train_steps=train_steps, val_batches=val_batches,
@@ -1038,6 +1246,49 @@ def phase_train_cli(step_ms: float, tmpdir: Path):
     return dict(launches)
 
 
+# The afterburner stack: LinkNet34's launches plus the 18 BatchNorms of the
+# afterburner's UNet (36, 18, 0); in eval mode only LinkNet34's InPlaceABNs.
+AB_STEP_LAUNCHES = {k: STEP_LAUNCHES[k] + MODEL_STEP_LAUNCHES["unet"][k] for k in STEP_LAUNCHES}
+AB_STEPS = 8
+
+
+def phase_train_ab_cli(step_ms: float, tmpdir: Path):
+    """The afterburner CLI on the head that train_cli's shapes-device runs
+    left as their best checkpoint, from that run's directory (the CLI finds
+    ``linknet34_checkpoint.pth`` by a recursive search from the working
+    directory)."""
+    head_dir = (tmpdir / "experiments" / "shapes-device" / "bce_jaccard"
+                / f"shapes-device_linknet34_{PATCH}_rgb_bce_jaccard")
+    head, _ = load_snapshot(str(head_dir / "linknet34_checkpoint.pth"))
+    argv = CLI_ARGS + ["--experiments-dir", str(tmpdir / "ab"), "-d", "shapes-device", "-e", "1",
+                       "-s", str(AB_STEPS)]
+    cwd = os.getcwd()
+    os.chdir(head_dir)
+    try:
+        history, out = cli_run("ab", argv, AB_STEPS, max(AB_STEPS // 4, 1), step_ms,
+                               main=train_ab_cli.main, step_launches=AB_STEP_LAUNCHES)
+    finally:
+        os.chdir(cwd)
+    after, _ = load_snapshot(str(next((tmpdir / "ab").rglob("linknet34_snapshot.pth"))))
+    stack = train_ab_cli._model_builder(train_cli.build_arg_parser().parse_args(argv), 3)
+    start, params = stack.state_dict(), {n for n, _ in stack.named_parameters()}
+    head_params = [k for k in head if "head." + k in params]
+    head_stats = [k for k in head if k.endswith(("running_mean", "running_var"))]
+    ab_params = [k for k in params if k.startswith("afterburner.")]
+    frozen = sum(torch.equal(after["head." + k], head[k]) for k in head_params)
+    stats_moved = sum(not torch.equal(after["head." + k], head[k]) for k in head_stats)
+    ab_moved = sum(not torch.equal(after[k], start[k]) for k in ab_params)
+    ok = (frozen == len(head_params) and stats_moved == len(head_stats)
+          and ab_moved == len(ab_params) and history["epoch"] == [0])
+    emit("train_ab_cli", run=out, head_parameters=len(head_params), head_parameters_unchanged=frozen,
+         head_running_stats=len(head_stats), head_running_stats_moved=stats_moved,
+         afterburner_parameters=len(ab_params), afterburner_parameters_moved=ab_moved,
+         ok=bool(ok))
+    if not ok:
+        raise AssertionError("train_ab_cli checks failed")
+    return out["launches"]
+
+
 def busy_share(trace_path: Path) -> dict:
     """The device's busy and idle share over a torch.profiler Chrome trace:
     the union of its kernels, copies and sets against the span of all its
@@ -1078,8 +1329,8 @@ def phase_one_launch(norm_shapes):
     Last of the phases that use the card: a profiler session leaves CUPTI
     attached to the process, which slows every later launch."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 50)
-    unique = sorted(set(norm_shapes["bn"] + norm_shapes["abn"]), key=lambda s: int(np.prod(s)))
-    abn_unique = sorted(set(norm_shapes["abn"]), key=lambda s: int(np.prod(s)))
+    unique = sorted(_unique(norm_shapes, ("bn", "abn")), key=lambda s: int(np.prod(s)))
+    abn_unique = sorted(_unique(norm_shapes, ("abn",)), key=lambda s: int(np.prod(s)))
     fns = {}
     for label, shape in (("smallest", unique[0]), ("largest", unique[-1])):
         a = cuda_input(shape, torch.bfloat16, "channels_last", g)
@@ -1105,12 +1356,12 @@ def kernel_entry(kid, name, replaces, launches, max_err, timing, **extra):
 
 
 def _per_step_entry(per_step):
-    """The modelled per-step sums for the kernel table (see :func:`step_sum`):
-    calls x cold time against calls x bound."""
+    """The modelled per-step sums of each model for the kernel table (see
+    :func:`step_sum`): calls x cold time against calls x bound."""
     keys = ("calls_modelled", "ms_modelled_cold", "bound_ms_modelled", "plain_ms_modelled_cold",
             "library_ms_modelled_cold", "library_calls_modelled",
             "ms_modelled_cold_of_library_calls")
-    return {k: per_step[k] for k in keys if k in per_step}
+    return {model: {k: sums[k] for k in keys if k in sums} for model, sums in per_step.items()}
 
 
 def main() -> int:
@@ -1119,18 +1370,24 @@ def main() -> int:
         return 2
     card, smi = phase_device()
     phase_build()
-    norm_shapes = step_norm_shapes(TRAIN_BATCH, PATCH)
+    norm_shapes = {m: step_norm_shapes(TRAIN_BATCH, PATCH, model_name=m) for m in KERNEL_MODELS}
     torch.cuda.empty_cache()
     b1, b1_err = phase_kernel_b1(card, norm_shapes)
     b3, b3_err = phase_kernel_b3(card, norm_shapes)
-    b2, b2_err = phase_kernel_b2(card)
+    b2, b2_err = phase_kernel_b2(card, norm_shapes)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         state_dict = phase_model_parity(Path(tmp))
-    serve = phase_serve(state_dict)
+    counts = {"serve": phase_serve(state_dict)}
     phase_train_parity()
-    train, step_ms = phase_train()
+    counts["train"], step_ms = phase_train()
+    phase_zf_unet_parity()
+    counts["train_zf_unet"] = phase_train_zf_unet(smi)
+    counts["train_unet_abn"] = phase_train_unet_abn(smi)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        cli = phase_train_cli(step_ms, Path(tmp))
+        counts["train_cli"] = phase_train_cli(step_ms, Path(tmp))
+        counts["train_ab_cli"] = phase_train_ab_cli(step_ms, Path(tmp))
     counters = kernels.counter_buffers()
     if not counters or any(int(buf.count_nonzero()) for buf in counters):
         raise AssertionError("the B1/B3 counter buffers are not all zero after training: "
@@ -1140,23 +1397,25 @@ def main() -> int:
     phase_one_launch(norm_shapes)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli_profile(Path(tmp))
-    counts = {"serve": serve, "train": train, "train_cli": cli}
-    by_path = {name: {p: counts[p][name] for p in paths} for name, paths in KERNEL_PATHS.items()}
-    for name, counts in by_path.items():
-        for path, count in counts.items():
-            if count == 0:
+    by_path = {name: {p: counts[p][name] for p in PATHS} for name in KERNEL_PATHS}
+    for name, paths in KERNEL_PATHS.items():
+        for path in paths:
+            if by_path[name][path] == 0:
                 raise AssertionError(f"the {path} path never launched the {name} kernel")
     print(json.dumps({"kernels": [
         kernel_entry("B1", "channel_sums", "segtpu/ops/bn_alt.py:100",
                      sum(by_path["channel_sums"].values()), b1_err, b1,
                      form="single (sum x, sum x^2); library: torch.var_mean",
+                     pair=b1["pair"], largest_linknet34=b1["largest_linknet34"],
                      per_step=_per_step_entry(b1["per_step"]),
                      launches_by_path=by_path["channel_sums"]),
         kernel_entry("B2", "abn_norm_act", "segtpu/ops/bn_alt.py:181",
                      sum(by_path["abn_norm_act"].values()), b2_err, dict(b2, library_ms=None),
+                     largest_training=b2["largest_training"],
                      launches_by_path=by_path["abn_norm_act"]),
         kernel_entry("B3", "abn_bwd", "segtpu/ops/bn_alt.py:216", sum(by_path["abn_bwd"].values()),
-                     b3_err, b3, activation="leaky_relu", per_step=_per_step_entry(b3["per_step"]),
+                     b3_err, b3, activation="leaky_relu", largest_linknet34=b3["largest_linknet34"],
+                     per_step=_per_step_entry(b3["per_step"]),
                      launches_by_path=by_path["abn_bwd"]),
     ]}), flush=True)
     print(smi, flush=True)

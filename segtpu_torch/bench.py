@@ -1,5 +1,6 @@
 """Training throughput of the port (counterpart of bench.py:40-96, 200-248).
 
+    python -m segtpu_torch.bench --config zf_unet-512
     python -m segtpu_torch.bench --config linknet34-bce_jaccard-adam-512
 
 prints one JSON line with ``bench.py``'s keys, ``{"metric", "value", "unit",
@@ -8,6 +9,10 @@ plus the ``device`` it ran on. It runs on CUDA unless given
 ``--device cpu``. Weights are random, drawn from a seed; the batch is one
 fixed SHAPES batch made on the device (segtpu's default when no DSB2018
 directory is present).
+
+``zf_unet-512`` is segtpu's default config. segtpu runs it with ``s2d=True``,
+the same function computed in space-to-depth form for the TPU's 128-lane
+channel tiles (segtpu/ops/s2d.py:3-9); the port computes it in normal space.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from segtpu_torch.train.optim import get_optimizer
 from segtpu_torch.train.state import make_train_step
 
 BENCH_CONFIGS = {
+    "zf_unet-512": dict(model_name="zf_unet", patch=512, batch_size=16, loss_name="bce",
+                        optimizer="sgd"),
     "linknet34-bce_jaccard-adam-512": dict(
         model_name="linknet34", patch=512, batch_size=16, loss_name="bce_jaccard",
         optimizer="adam"),

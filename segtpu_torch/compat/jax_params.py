@@ -73,7 +73,50 @@ def _entries_linknet34() -> List[Entry]:
     return E
 
 
-_ENTRY_BUILDERS = {"linknet34": _entries_linknet34}
+def _entries_double_conv(tp: str, fp: Tuple[str, ...], abn: bool) -> List[Entry]:
+    """The reference's double-conv Sequential: conv 0, BN 1, conv 3, BN 4;
+    with InPlaceABN conv 0, ABN 1, conv 2, ABN 3 (segtpu
+    torch_import.py:65-78)."""
+    if abn:
+        idx = [("conv", 0, "conv0"), ("abn", 1, "abn0"), ("conv", 2, "conv1"), ("abn", 3, "abn1")]
+    else:
+        idx = [("conv", 0, "conv0"), ("bn", 1, "bn0"), ("conv", 3, "conv1"), ("bn", 4, "bn1")]
+    return [(kind, f"{tp}.{i}", fp + ((name, "Conv_0") if kind == "conv" else (name,)))
+            for kind, i, name in idx]
+
+
+def _entries_unet(root: Tuple[str, ...] = (), abn: bool = False) -> List[Entry]:
+    """reference lib/models/unet.py:80-107 and unet_abn.py (segtpu
+    torch_import.py:81-91); ``root`` is segtpu's path to the UNet."""
+    E = _entries_double_conv("inc.conv.conv", root + ("inc",), abn)
+    for i in range(1, 5):
+        E += _entries_double_conv(f"down{i}.mpconv.1.conv", root + (f"down{i}",), abn)
+    for i in range(1, 5):
+        E += _entries_double_conv(f"up{i}.conv.conv", root + (f"up{i}", "conv"), abn)
+    E.append(("conv", "outc.conv", root + ("outc", "Conv_0")))
+    return E
+
+
+def _entries_zf_unet() -> List[Entry]:
+    """reference lib/models/zf_unet.py:35-95 (segtpu torch_import.py:94-106)."""
+    names = ["conv_224", "conv_112", "conv_56", "conv_28", "conv_14", "conv_7",
+             "up_conv_14", "up_conv_28", "up_conv_56", "up_conv_112", "up_conv_224"]
+    E: List[Entry] = []
+    for name in names:
+        for i, attr in enumerate(("l1", "l2")):
+            E.append(("conv", f"{name}.{attr}.conv", (name, f"conv{i}", "Conv_0")))
+            E.append(("bn", f"{name}.{attr}.bn", (name, f"bn{i}")))
+    E.append(("conv", "conv_final", ("conv_final", "Conv_0")))
+    return E
+
+
+_ENTRY_BUILDERS = {
+    "linknet34": _entries_linknet34,
+    "unet": _entries_unet,
+    # segtpu's UNetABN keeps its UNet under "unet"; the reference's keys have no prefix
+    "unet_abn": lambda: _entries_unet(root=("unet",), abn=True),
+    "zf_unet": _entries_zf_unet,
+}
 
 
 def _get(tree: Mapping, path: Tuple[str, ...]):

@@ -4,7 +4,8 @@
 model with weights drawn from ``torch.Generator().manual_seed(seed)`` on the
 CPU, puts it in eval mode and moves it to ``device`` (CUDA unless the caller
 passes ``device="cpu"``); on CUDA the model runs in ``channels_last`` memory.
-Only ``linknet34`` is ported so far.
+Ported so far: ``linknet34``, ``unet``, ``unet_abn`` and ``zf_unet``, each at
+segtpu's registry defaults (the U-Nets at 32 filters).
 """
 
 from __future__ import annotations
@@ -17,10 +18,14 @@ from torch import nn
 from segtpu_torch.device import DeviceLike, resolve_device
 from segtpu_torch.models.layers import reset_parameters
 from segtpu_torch.models.linknet import LinkNet34
+from segtpu_torch.models.unet import UNet, UNetABN, ZF_UNET
 
 _REGISTRY: Dict[str, Callable[[int, int], nn.Module]] = {
     "linknet34": lambda patch_size, num_channels: LinkNet34(num_classes=1,
                                                             num_channels=num_channels),
+    "unet": lambda patch_size, num_channels: UNet(n_channels=num_channels),
+    "unet_abn": lambda patch_size, num_channels: UNetABN(n_channels=num_channels),
+    "zf_unet": lambda patch_size, num_channels: ZF_UNET(input_channels=num_channels),
 }
 
 

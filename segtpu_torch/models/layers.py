@@ -10,30 +10,66 @@ update their running statistics as torch's ``BatchNorm2d`` does: momentum
 Each layer takes its channel sums once: the statistics that normalise the
 batch are the ones that update the running buffers. Random init takes an
 explicit ``torch.Generator`` (``reset_parameters``).
+
+Under :func:`remat` a block's forward runs again in the backward pass; the
+running statistics are updated by the first forward only, as flax's
+``nn.remat`` keeps only the first forward's ``batch_stats``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from segtpu_torch.ops import abn as abn_ops
 
+# Set while torch.utils.checkpoint recomputes a block (see :func:`remat`), in
+# the thread that recomputes it.
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    before = getattr(_recompute, "on", False)
+    _recompute.on = True
+    try:
+        yield
+    finally:
+        _recompute.on = before
+
+
+def remat(block: nn.Module, *args: torch.Tensor) -> torch.Tensor:
+    """``block(*args)`` that keeps none of its activations for the backward
+    pass and recomputes them there (segtpu's ``nn.remat``), through
+    ``torch.utils.checkpoint`` (non-reentrant, RNG state preserved, so a
+    dropout draws the same mask again). During the recompute the
+    normalisation layers leave their running statistics alone."""
+    return torch.utils.checkpoint.checkpoint(
+        block, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
 
 
 def _update_running_stats(module: nn.Module, x: torch.Tensor, mean: torch.Tensor,
                           var: torch.Tensor) -> None:
     """``running = (1 - momentum) * running + momentum * batch``, with the
-    unbiased batch variance in the running var (segtpu layers.py:116-120)."""
+    unbiased batch variance in the running var (segtpu layers.py:116-120);
+    nothing while :func:`remat` recomputes a block."""
+    if getattr(_recompute, "on", False):
+        return
     count = x.numel() // x.shape[1]
     m = module.momentum
     with torch.no_grad():
         module.running_mean.mul_(1 - m).add_(mean, alpha=m)
         module.running_var.mul_(1 - m).add_(var * (count / max(count - 1, 1)), alpha=m)
+        if hasattr(module, "num_batches_tracked"):
+            module.num_batches_tracked.add_(1)
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator]):
@@ -59,8 +95,6 @@ class BatchNormTorch(nn.Module):
         if self.training:
             y, mean, var = abn_ops.bn_train(x, self.weight, self.bias, self.eps)
             _update_running_stats(self, x, mean, var)
-            with torch.no_grad():
-                self.num_batches_tracked.add_(1)
             return y
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                             self.bias, False, 0.0, self.eps)
@@ -131,6 +165,30 @@ class ConvTranspose2dTorch(nn.ConvTranspose2d):
         _uniform_(self.weight, bound, generator)
         if self.bias is not None:
             _uniform_(self.bias, bound, generator)
+
+
+def max_pool(x: torch.Tensor) -> torch.Tensor:
+    """2x2 max pooling, stride 2, odd sizes floored (segtpu ``max_pool``;
+    ``nn.MaxPool2d(2)``). The gradient goes to the first maximal element of
+    each window in row-major order, as segtpu's: torch's CPU and CUDA
+    kernels, NCHW and channels_last, keep the first of equal values."""
+    return F.max_pool2d(x, 2, 2)
+
+
+def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """Nearest-neighbour upsampling by ``scale`` (segtpu ``upsample_nearest``;
+    ``nn.Upsample(scale_factor=2)``), in ``x``'s dtype. CUDA autocast would
+    run it in fp32 (its fp32 list holds ``upsample_nearest2d``), which also
+    promotes the concatenation with a bf16 skip to fp32; a copy of values
+    loses nothing in bf16, which is where segtpu runs it."""
+    with torch.autocast(x.device.type, enabled=False):
+        return F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+# segtpu's channel ``Dropout2d`` with ``groups=1``: one Bernoulli draw per
+# (sample, channel), kept values scaled by 1 / (1 - p), identity in eval mode.
+# ``groups > 1`` belongs to s2d execution, which is not ported.
+Dropout2d = nn.Dropout2d
 
 
 def reset_parameters(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:

@@ -188,10 +188,16 @@ def abn_bwd_sums(z: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor, beta: to
 # ---------------------------------------------------------------------------
 
 def _dense(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself when it is contiguous or channels_last, else a contiguous copy."""
+    """``x`` itself when it is contiguous or channels_last, else a contiguous
+    copy, counted in ``_dense.copies`` (a layout that the training path
+    should never hand over)."""
     if x.is_contiguous() or (x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last)):
         return x
+    _dense.copies += 1
     return x.contiguous()
+
+
+_dense.copies = 0
 
 
 def _like(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

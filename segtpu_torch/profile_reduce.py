@@ -58,14 +58,19 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
     return float(np.median(times))
 
 
-def step_norm_shapes(batch: int = BATCH, patch: int = PATCH, device="cuda"):
-    """Input shapes of the 36 BatchNorm and 12 InPlaceABN layers of one
-    LinkNet34 training step, in layer order, recorded by hooks on one
-    forward pass: ``{"bn": [...], "abn": [...]}``."""
+# BatchNorm and InPlaceABN layers of each model of the registry
+NORM_LAYERS = {"linknet34": (36, 12), "unet": (18, 0), "unet_abn": (0, 18), "zf_unet": (22, 0)}
+
+
+def step_norm_shapes(batch: int = BATCH, patch: int = PATCH, device="cuda",
+                     model_name: str = "linknet34"):
+    """Input shapes of the BatchNorm and InPlaceABN layers of one training
+    step of ``model_name`` (LinkNet34: 36 and 12), in layer order, recorded
+    by hooks on one forward pass: ``{"bn": [...], "abn": [...]}``."""
     from segtpu_torch.models import get_model
     from segtpu_torch.models.layers import BatchNormTorch, InPlaceABN
 
-    model = get_model("linknet34", patch_size=patch, device=device, seed=SEED)
+    model = get_model(model_name, patch_size=patch, device=device, seed=SEED)
     shapes = {"bn": [], "abn": []}
 
     def hook(kind):
@@ -79,9 +84,10 @@ def step_norm_shapes(batch: int = BATCH, patch: int = PATCH, device="cuda"):
         model(x)
     for h in handles:
         h.remove()
-    if (len(shapes["bn"]), len(shapes["abn"])) != (36, 12):
-        raise AssertionError(f"expected 36 BN and 12 ABN layers, found {len(shapes['bn'])} "
-                             f"and {len(shapes['abn'])}")
+    want = NORM_LAYERS[model_name]
+    if (len(shapes["bn"]), len(shapes["abn"])) != want:
+        raise AssertionError(f"expected {want[0]} BN and {want[1]} ABN layers in {model_name}, "
+                             f"found {len(shapes['bn'])} and {len(shapes['abn'])}")
     return shapes
 
 

@@ -1,14 +1,16 @@
 """Where the device time of the port's training step goes, on one GPU.
 
-    python -m segtpu_torch.profile_train [--out profile_train.json]
+    python -m segtpu_torch.profile_train [--config zf_unet-512] [--out profile_train.json]
 
-Runs the training step the way ``chip_smoke.py``'s train phase does
-(LinkNet34, random weights from a seed, batch 16, patch 512, bf16 autocast,
-bce_jaccard, Adam lr 1e-3, one fixed DeviceShapes batch), 3 warm steps, then
-3 steps under ``torch.profiler``. Prints one JSON object: the wall
-milliseconds per step, the device-busy milliseconds per step (the union of
-all kernel intervals) and the idle share, the kernel launches per step, and
-the device time per step by kernel group and by kernel name. Fails when the
+Runs the training step of a bench config (``segtpu_torch.bench``; default
+``linknet34-bce_jaccard-adam-512``, the step of ``chip_smoke.py``'s train
+phase) as the bench does: random weights from a seed, its batch and patch,
+bf16 autocast, its loss and optimizer at lr 1e-3, one fixed DeviceShapes
+batch; 3 warm steps, then 3 steps under ``torch.profiler``. Prints one JSON
+object: the wall milliseconds per step, the device-busy milliseconds per
+step (the union of all kernel intervals) and the idle share, the kernel
+launches per step, the peak memory, and the device time per step by kernel
+group and by kernel name. Fails when the
 trace holds no device kernels.
 """
 
@@ -24,6 +26,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from segtpu_torch.bench import BENCH_CONFIGS
 from segtpu_torch.data.shapes import DeviceShapes
 from segtpu_torch.models import get_model
 from segtpu_torch.ops.losses import get_loss
@@ -32,7 +35,7 @@ from segtpu_torch.profile_serve import group_of, union_ms
 from segtpu_torch.train.optim import get_optimizer
 from segtpu_torch.train.state import make_train_step
 
-SEED, BATCH, PATCH, LR, WARMUP, STEPS = 0, 16, 512, 1e-3, 3, 3
+SEED, LR, WARMUP, STEPS = 0, 1e-3, 3, 3
 
 # kernel-name fragments -> group, first match wins
 GROUPS = (
@@ -49,6 +52,9 @@ GROUPS = (
     ("nhwcToNchw", "layout transform"),
     ("multi_tensor_apply", "optimizer (foreach)"),
     ("max_pool", "max pool"),
+    ("upsample", "nearest upsampling"),
+    ("CatArray", "concatenation"),
+    ("bernoulli", "dropout masks"),
     ("reduce_kernel", "reductions (loss, metrics, bias grads, grad abs-max)"),
     ("elementwise", "elementwise (dx passes, casts, activations, adds)"),
     ("copy", "copies"),
@@ -57,14 +63,17 @@ GROUPS = (
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
+    parser.add_argument("--config", default="linknet34-bce_jaccard-adam-512",
+                        choices=sorted(BENCH_CONFIGS))
     parser.add_argument("--out", default=None, help="also write the JSON here")
     args = parser.parse_args(argv)
 
-    model = get_model("linknet34", patch_size=PATCH, device="cuda", seed=SEED)
-    step = make_train_step(model, get_optimizer("adam", model.parameters(), LR),
-                           get_loss("bce_jaccard"), default_metrics(), bf16=True)
-    x, y = DeviceShapes(PATCH, device="cuda").batch(
-        BATCH, torch.Generator(device="cuda").manual_seed(SEED))
+    cfg = BENCH_CONFIGS[args.config]
+    model = get_model(cfg["model_name"], patch_size=cfg["patch"], device="cuda", seed=SEED)
+    step = make_train_step(model, get_optimizer(cfg["optimizer"], model.parameters(), LR),
+                           get_loss(cfg["loss_name"]), default_metrics(), bf16=True)
+    x, y = DeviceShapes(cfg["patch"], device="cuda").batch(
+        cfg["batch_size"], torch.Generator(device="cuda").manual_seed(SEED))
     for _ in range(WARMUP):
         step(x, y, LR)
     torch.cuda.synchronize()
@@ -92,7 +101,8 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:20]
     result = {
-        "card": smi, "batch": BATCH, "patch": PATCH, "steps": STEPS,
+        "card": smi, "config": args.config, "batch": cfg["batch_size"], "patch": cfg["patch"],
+        "steps": STEPS, "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "wall_ms_per_step": wall_ms / STEPS, "device_busy_ms_per_step": busy_ms,
         "idle_share_of_wall": 1.0 - busy_ms * STEPS / wall_ms,
         "kernel_ms_per_step": sum(by_name.values()), "kernels_per_step": len(kernels) / STEPS,

@@ -51,7 +51,6 @@ LATER_FLAGS = (
     ("model_parallel", lambda v: v > 1, "--model-parallel",
      "slice 5 of ROADMAP.md (parallel modes: tensor parallel)"),
     ("s2d", bool, "--s2d", "slice 5 of ROADMAP.md (s2d mode) and A1"),
-    ("remat", bool, "--remat", "slice 4 of ROADMAP.md (tiramisu, torch.utils.checkpoint)"),
     ("packed", bool, "--packed", "slice 4 of ROADMAP.md (tiramisu)"),
     ("device_augs", bool, "--device-augs",
      "slice 5 of ROADMAP.md (device augmentations) and A4 (augment_fn)"),
@@ -94,7 +93,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="Model-parallel mesh axis size (not yet ported: only 1)")
     parser.add_argument("--s2d", action="store_true", help="Space-to-depth mode (not yet ported)")
     parser.add_argument("--remat", action="store_true",
-                        help="Per-block rematerialization (not yet ported)")
+                        help="Per-block rematerialization for models that have it (zf_unet)")
     parser.add_argument("--packed", action="store_true",
                         help="Packed dense-block growth (not yet ported)")
     parser.add_argument("--light-logging", action="store_true",
@@ -209,6 +208,10 @@ def main(argv=None, *, param_penalty: Optional[Callable] = None,
     else:
         model = get_model(args.model, patch_size=args.patch_size, num_channels=num_channels,
                           device=device)
+    if args.remat:
+        if not hasattr(model, "remat"):
+            raise SystemExit(f"--remat: model '{args.model}' has no remat mode")
+        model.remat = True
     if args.init_torch:
         sd = torch.load(args.init_torch, map_location="cpu", weights_only=False)
         if isinstance(sd, dict) and "model" in sd:  # a full reference snapshot

@@ -60,12 +60,12 @@ def test_state_dict_from_jax_equals_export_state_dict(linknet):
 
 def test_state_dict_from_jax_rejects_unported_model():
     with pytest.raises(ValueError, match="not yet ported"):
-        state_dict_from_jax("zf_unet", {}, {})
+        state_dict_from_jax("tiramisu67", {}, {})
 
 
 def test_get_model_rejects_unported_model():
     with pytest.raises(ValueError, match="not yet ported"):
-        get_model("unet", device="cpu")
+        get_model("tiramisu67", device="cpu")
 
 
 def test_get_model_without_device_raises_on_cpu_only_host(monkeypatch):
@@ -107,7 +107,8 @@ def port_modules():
 def test_port_imports_neither_jax_nor_segtpu():
     modules = port_modules()
     assert {"segtpu_torch.profile_reduce", "segtpu_torch.train_cli",
-            "segtpu_torch.data.pipeline"} <= set(modules)
+            "segtpu_torch.data.pipeline", "segtpu_torch.models.unet",
+            "segtpu_torch.models.afterburner_stack", "segtpu_torch.train_ab_cli"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -309,9 +309,14 @@ def test_linknet34_eval_step_uses_running_stats(linknet_step):
 # ---------------------------------------------------------------------------
 
 def test_bench_config_matches_segtpu():
-    want = dict(jax_bench.BENCH_CONFIGS["linknet34-bce_jaccard-adam-512"])
-    assert want.pop("kind") == "train"
-    assert BENCH_CONFIGS == {"linknet34-bce_jaccard-adam-512": want}
+    """Each of the port's bench configs is segtpu's, which runs zf_unet-512
+    in s2d form, the same function that the port computes in normal space."""
+    assert sorted(BENCH_CONFIGS) == ["linknet34-bce_jaccard-adam-512", "zf_unet-512"]
+    for name, config in BENCH_CONFIGS.items():
+        want = dict(jax_bench.BENCH_CONFIGS[name])
+        assert want.pop("kind") == "train"
+        assert want.pop("s2d", False) == (name == "zf_unet-512")
+        assert config == want, name
 
 
 def test_measure_train_runs_on_cpu_when_asked():
