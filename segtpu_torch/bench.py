@@ -2,6 +2,9 @@
 
     python -m segtpu_torch.bench --config zf_unet-512
     python -m segtpu_torch.bench --config linknet34-bce_jaccard-adam-512
+    python -m segtpu_torch.bench --config unet11-finetune-512
+    python -m segtpu_torch.bench --config albunet-finetune-512
+    python -m segtpu_torch.bench --config tiramisu67-512-b4
 
 prints one JSON line with ``bench.py``'s keys, ``{"metric", "value", "unit",
 "vs_baseline"}`` (``vs_baseline`` is null: the port keeps no baseline),
@@ -10,9 +13,13 @@ plus the ``device`` it ran on. It runs on CUDA unless given
 fixed SHAPES batch made on the device (segtpu's default when no DSB2018
 directory is present).
 
-``zf_unet-512`` is segtpu's default config. segtpu runs it with ``s2d=True``,
-the same function computed in space-to-depth form for the TPU's 128-lane
-channel tiles (segtpu/ops/s2d.py:3-9); the port computes it in normal space.
+The configs are segtpu's five training configs (bench.py:202-219).
+``zf_unet-512`` is segtpu's default config. segtpu runs it and
+``unet11-finetune-512`` with ``s2d=True``, the same function computed in
+space-to-depth form for the TPU's 128-lane channel tiles
+(segtpu/ops/s2d.py:3-9); the port computes them in normal space. The two
+finetune configs train with the encoder frozen (``ENCODER_PREFIXES``), and
+``tiramisu67-512-b4`` times 10 steps at batch 4.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import torch
 
 from segtpu_torch.data.shapes import DeviceShapes
 from segtpu_torch.device import DeviceLike, resolve_device
-from segtpu_torch.models import get_model
+from segtpu_torch.models import get_model, without_encoder
 from segtpu_torch.ops.losses import get_loss
 from segtpu_torch.ops.metrics import default_metrics
 from segtpu_torch.train.optim import get_optimizer
@@ -37,6 +44,12 @@ BENCH_CONFIGS = {
     "linknet34-bce_jaccard-adam-512": dict(
         model_name="linknet34", patch=512, batch_size=16, loss_name="bce_jaccard",
         optimizer="adam"),
+    "unet11-finetune-512": dict(model_name="unet11", patch=512, batch_size=16, loss_name="bce",
+                                optimizer="adam", freeze_encoder=True),
+    "albunet-finetune-512": dict(model_name="albunet", patch=512, batch_size=16,
+                                 loss_name="bce", optimizer="adam", freeze_encoder=True),
+    "tiramisu67-512-b4": dict(model_name="tiramisu67", patch=512, batch_size=4, steps=10,
+                              loss_name="bce", optimizer="sgd"),
 }
 
 
@@ -48,13 +61,19 @@ def _sync(device: torch.device) -> None:
 def measure_train(batch_size: int = 16, patch: int = 512, steps: int = 20, warmup: int = 3,
                   model_name: str = "linknet34", bf16: bool = True,
                   loss_name: str = "bce_jaccard", optimizer: str = "adam",
-                  lr: float = 1e-3, device: DeviceLike = None, seed: int = 0) -> float:
+                  lr: float = 1e-3, freeze_encoder: bool = False, device: DeviceLike = None,
+                  seed: int = 0) -> float:
     """Images per second of ``steps`` training steps after ``warmup`` ones,
-    on one fixed batch. Raises if the last loss is not finite."""
+    on one fixed batch. ``freeze_encoder``: the encoder's gradients are
+    zeroed, as under the train CLI's ``--freeze-encoder``. Raises if the
+    last loss is not finite."""
     dev = resolve_device(device)
     model = get_model(model_name, patch_size=patch, device=dev, seed=seed)
     opt = get_optimizer(optimizer, model.parameters(), lr)
-    step = make_train_step(model, opt, get_loss(loss_name), default_metrics(), bf16=bf16)
+    trainable = (without_encoder(model_name, (n for n, _ in model.named_parameters()))
+                 if freeze_encoder else None)
+    step = make_train_step(model, opt, get_loss(loss_name), default_metrics(), bf16=bf16,
+                           trainable_mask=trainable)
     gen = torch.Generator(device=dev).manual_seed(seed)
     x, y = DeviceShapes(patch, device=dev).batch(batch_size, gen)
 

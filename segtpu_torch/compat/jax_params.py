@@ -87,11 +87,15 @@ def _entries_double_conv(tp: str, fp: Tuple[str, ...], abn: bool) -> List[Entry]
 
 def _entries_unet(root: Tuple[str, ...] = (), abn: bool = False) -> List[Entry]:
     """reference lib/models/unet.py:80-107 and unet_abn.py (segtpu
-    torch_import.py:81-91); ``root`` is segtpu's path to the UNet."""
+    torch_import.py:81-91); ``root`` is segtpu's path to the UNet. The
+    transposed convs ``up{k}.up`` of ``UNet(upsample=False)`` are mapped
+    where the tree has them (segtpu names them ``ConvTranspose2dTorch_0``)."""
     E = _entries_double_conv("inc.conv.conv", root + ("inc",), abn)
     for i in range(1, 5):
         E += _entries_double_conv(f"down{i}.mpconv.1.conv", root + (f"down{i}",), abn)
     for i in range(1, 5):
+        E.append(("deconv?", f"up{i}.up",
+                  root + (f"up{i}", "ConvTranspose2dTorch_0", "ConvTranspose_0")))
         E += _entries_double_conv(f"up{i}.conv.conv", root + (f"up{i}", "conv"), abn)
     E.append(("conv", "outc.conv", root + ("outc", "Conv_0")))
     return E
@@ -110,12 +114,85 @@ def _entries_zf_unet() -> List[Entry]:
     return E
 
 
+def _entries_decoder_blocks(names) -> List[Entry]:
+    """TernausNet's DecoderBlock: the ConvRelu ``block.0.conv`` and the
+    transposed conv ``block.1`` (segtpu torch_import.py:203-207)."""
+    E: List[Entry] = []
+    for name in names:
+        E.append(("conv", f"{name}.block.0.conv", (name, "convrelu", "conv", "Conv_0")))
+        E.append(("deconv", f"{name}.block.1", (name, "deconv", "ConvTranspose_0")))
+    return E
+
+
+def _entries_ternaus(vgg16: bool) -> List[Entry]:
+    """reference unet11.py:51-122 / unet16.py:52-131 (segtpu
+    torch_import.py:189-209)."""
+    stage_convs = (
+        {"conv1": [0, 2], "conv2": [0, 2], "conv3": [0, 2, 4],
+         "conv4": [0, 2, 4], "conv5": [0, 2, 4]}
+        if vgg16 else
+        {"conv1": [0], "conv2": [0], "conv3": [0, 2],
+         "conv4": [0, 2], "conv5": [0, 2]}
+    )
+    E: List[Entry] = []
+    for stage, idxs in stage_convs.items():
+        for i, li in enumerate(idxs):
+            E.append(("conv", f"{stage}.{li}", (stage, f"conv{i}", "Conv_0")))
+    E += _entries_decoder_blocks(("center", "dec5", "dec4", "dec3", "dec2"))
+    E.append(("conv", "dec1.conv", ("dec1", "conv", "Conv_0")))
+    E.append(("conv", "final", ("final", "Conv_0")))
+    return E
+
+
+def _entries_albunet() -> List[Entry]:
+    """segtpu's AlbuNet (albunet.py:52-85), which segtpu's exporter does not
+    map: torchvision's ResNet-34 keys under ``encoder.`` (the tree of
+    segtpu's ENCODER_SPECS["albunet"]), TernausNet's decoder blocks, then
+    ``dec0.conv`` and ``final``."""
+    prefix_map = {"conv1": "encoder.conv1", "bn1": "encoder.bn1"}
+    for i in range(1, 5):
+        prefix_map[f"layer{i}"] = f"encoder.layer{i}"
+    E = _entries_resnet_encoder(prefix_map, (3, 4, 6, 3))
+    E += _entries_decoder_blocks(("center", "dec5", "dec4", "dec3", "dec2", "dec1"))
+    E.append(("conv", "dec0.conv", ("dec0", "conv", "Conv_0")))
+    E.append(("conv", "final", ("final", "Conv_0")))
+    return E
+
+
+def _entries_tiramisu(down_blocks, up_blocks, bottleneck_layers) -> List[Entry]:
+    """reference lib/models/tiramisu.py:93-205 (segtpu torch_import.py:212-233)."""
+    E: List[Entry] = [("conv", "firstconv", ("firstconv", "Conv_0"))]
+
+    def dense(tp, fp, n):
+        for j in range(n):
+            E.append(("bn", f"{tp}.layers.{j}.norm", fp + (f"layer{j}", "norm")))
+            E.append(("conv", f"{tp}.layers.{j}.conv", fp + (f"layer{j}", "conv", "Conv_0")))
+
+    for i, n in enumerate(down_blocks):
+        dense(f"denseBlocksDown.{i}", (f"denseDown{i}",), n)
+        E.append(("bn", f"transDownBlocks.{i}.norm", (f"transDown{i}", "norm")))
+        E.append(("conv", f"transDownBlocks.{i}.conv", (f"transDown{i}", "conv", "Conv_0")))
+    dense("bottleneck.bottleneck", ("bottleneck",), bottleneck_layers)
+    for i, n in enumerate(up_blocks):
+        E.append(("deconv", f"transUpBlocks.{i}.convTrans",
+                  (f"transUp{i}", "convTrans", "ConvTranspose_0")))
+        dense(f"denseBlocksUp.{i}", (f"denseUp{i}",), n)
+    E.append(("conv", "finalConv", ("finalConv", "Conv_0")))
+    return E
+
+
 _ENTRY_BUILDERS = {
     "linknet34": _entries_linknet34,
     "unet": _entries_unet,
     # segtpu's UNetABN keeps its UNet under "unet"; the reference's keys have no prefix
     "unet_abn": lambda: _entries_unet(root=("unet",), abn=True),
     "zf_unet": _entries_zf_unet,
+    "unet11": lambda: _entries_ternaus(False),
+    "unet16": lambda: _entries_ternaus(True),
+    "albunet": _entries_albunet,
+    "tiramisu57": lambda: _entries_tiramisu((4,) * 5, (4,) * 5, 4),
+    "tiramisu67": lambda: _entries_tiramisu((5,) * 5, (5,) * 5, 5),
+    "tiramisu103": lambda: _entries_tiramisu((4, 5, 7, 10, 12), (12, 10, 7, 5, 4), 15),
 }
 
 
@@ -140,8 +217,16 @@ def state_dict_from_jax(model_name: str, params: Mapping, batch_stats: Mapping) 
     if name not in _ENTRY_BUILDERS:
         raise ValueError(f"model {model_name!r} is not yet ported to segtpu_torch; "
                          f"ported: {sorted(_ENTRY_BUILDERS)}")
+    return state_dict_from_entries(_ENTRY_BUILDERS[name](), params, batch_stats)
+
+
+def state_dict_from_entries(entries: List[Entry], params: Mapping,
+                            batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """:func:`state_dict_from_jax` by a list of entries, for a model built
+    at other than its registry's sizes (e.g. ``_entries_tiramisu`` of a
+    narrow FCDenseNet)."""
     sd: Dict[str, torch.Tensor] = {}
-    for kind, tp, path in _ENTRY_BUILDERS[name]():
+    for kind, tp, path in entries:
         optional = kind.endswith("?")
         kind = kind.rstrip("?")
         node = _get(params, path)

@@ -4,20 +4,27 @@
 model with weights drawn from ``torch.Generator().manual_seed(seed)`` on the
 CPU, puts it in eval mode and moves it to ``device`` (CUDA unless the caller
 passes ``device="cpu"``); on CUDA the model runs in ``channels_last`` memory.
-Ported so far: ``linknet34``, ``unet``, ``unet_abn`` and ``zf_unet``, each at
-segtpu's registry defaults (the U-Nets at 32 filters).
+Ported so far, each at segtpu's registry defaults: ``linknet34``, ``unet``,
+``unet_abn`` and ``zf_unet`` (32 filters), ``unet11``, ``unet16`` and
+``albunet`` (32 filters), ``tiramisu57``, ``tiramisu67`` and ``tiramisu103``.
+
+``ENCODER_PREFIXES`` names each model's encoder, the parameters that
+``--freeze-encoder`` freezes.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Iterable, Set
 
 import torch
 from torch import nn
 
 from segtpu_torch.device import DeviceLike, resolve_device
+from segtpu_torch.models.albunet import AlbuNet
 from segtpu_torch.models.layers import reset_parameters
 from segtpu_torch.models.linknet import LinkNet34
+from segtpu_torch.models.ternaus import UNet11, UNet16
+from segtpu_torch.models.tiramisu import FCDenseNet57, FCDenseNet67, FCDenseNet103
 from segtpu_torch.models.unet import UNet, UNetABN, ZF_UNET
 
 _REGISTRY: Dict[str, Callable[[int, int], nn.Module]] = {
@@ -26,11 +33,38 @@ _REGISTRY: Dict[str, Callable[[int, int], nn.Module]] = {
     "unet": lambda patch_size, num_channels: UNet(n_channels=num_channels),
     "unet_abn": lambda patch_size, num_channels: UNetABN(n_channels=num_channels),
     "zf_unet": lambda patch_size, num_channels: ZF_UNET(input_channels=num_channels),
+    "unet11": lambda patch_size, num_channels: UNet11(num_channels=num_channels),
+    "unet16": lambda patch_size, num_channels: UNet16(num_channels=num_channels),
+    "albunet": lambda patch_size, num_channels: AlbuNet(num_channels=num_channels),
+    "tiramisu57": lambda patch_size, num_channels: FCDenseNet57(in_channels=num_channels),
+    "tiramisu67": lambda patch_size, num_channels: FCDenseNet67(in_channels=num_channels),
+    "tiramisu103": lambda patch_size, num_channels: FCDenseNet103(in_channels=num_channels),
+}
+
+# Parameter-name prefixes of each model's encoder: the modules under segtpu's
+# ENCODER_SPECS paths (segtpu/compat/encoder_weights.py:44-67), by the names
+# that compat/jax_params.py maps them to.
+_VGG_STAGES = ("conv1.", "conv2.", "conv3.", "conv4.", "conv5.")
+ENCODER_PREFIXES = {
+    "linknet34": ("firstconv.", "firstbn.", "encoder1.", "encoder2.", "encoder3.", "encoder4."),
+    "unet11": _VGG_STAGES,
+    "unet16": _VGG_STAGES,
+    "albunet": ("encoder.",),
 }
 
 
 def model_names():
     return sorted(_REGISTRY)
+
+
+def without_encoder(model_name: str, names: Iterable[str]) -> Set[str]:
+    """The parameter names among ``names`` outside ``model_name``'s encoder:
+    what trains under ``--freeze-encoder``. Raises ``ValueError`` for a model
+    with no encoder."""
+    prefixes = ENCODER_PREFIXES.get(model_name.lower())
+    if prefixes is None:
+        raise ValueError(f"model '{model_name}' has no encoder subtree")
+    return {n for n in names if not n.startswith(prefixes)}
 
 
 def get_model(model_name: str, patch_size: int = 224, num_channels: int = 3,

@@ -185,6 +185,12 @@ def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
         return F.interpolate(x, scale_factor=scale, mode="nearest")
 
 
+def float_logits(out: torch.Tensor) -> torch.Tensor:
+    """A model's logits in fp32 whatever autocast gave, or float64 for a
+    float64 model (a CPU reference run)."""
+    return out.to(torch.promote_types(out.dtype, torch.float32))
+
+
 # segtpu's channel ``Dropout2d`` with ``groups=1``: one Bernoulli draw per
 # (sample, channel), kept values scaled by 1 / (1 - p), identity in eval mode.
 # ``groups > 1`` belongs to s2d execution, which is not ported.

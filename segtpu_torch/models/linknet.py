@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from segtpu_torch.models.encoders.resnet import resnet34
-from segtpu_torch.models.layers import Conv, ConvTranspose2dTorch, InPlaceABN
+from segtpu_torch.models.layers import Conv, ConvTranspose2dTorch, InPlaceABN, float_logits
 
 
 class DecoderBlockLinkNet(nn.Module):
@@ -87,5 +87,4 @@ class LinkNet34(nn.Module):
         f = self.finaldeconv1(self.finaldrop1(d1))
         f = F.leaky_relu(f, 0.01)
         f = F.leaky_relu(self.finalconv2(f), 0.01)
-        out = self.finalconv3(f)
-        return out.to(torch.promote_types(out.dtype, torch.float32))
+        return float_logits(self.finalconv3(f))

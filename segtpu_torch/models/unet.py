@@ -7,7 +7,8 @@ fp32 (float64 for a float64 model, a CPU reference run).
 Attribute names are the reference's state_dict keys:
 
 * UNet / UNetABN: ``inc.conv.conv.{i}``, ``down{k}.mpconv.1.conv.{i}``,
-  ``up{k}.conv.conv.{i}``, ``outc.conv``; the double conv is a Sequential of
+  ``up{k}.conv.conv.{i}`` (and ``up{k}.up`` with transposed-conv
+  upsampling), ``outc.conv``; the double conv is a Sequential of
   (conv 0, BN 1, ReLU 2, conv 3, BN 4, ReLU 5), or (conv 0, ABN 1, conv 2,
   ABN 3) with InPlaceABN. UNetABN has no ``unet.`` prefix, though its segtpu
   tree has one.
@@ -26,12 +27,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from segtpu_torch.models.layers import (BatchNormTorch, Conv, Dropout2d, InPlaceABN, max_pool,
-                                        remat, upsample_nearest)
-
-
-def _logits(out: torch.Tensor) -> torch.Tensor:
-    return out.to(torch.promote_types(out.dtype, torch.float32))
+from segtpu_torch.models.layers import (BatchNormTorch, Conv, ConvTranspose2dTorch, Dropout2d,
+                                        InPlaceABN, float_logits, max_pool, remat,
+                                        upsample_nearest)
 
 
 class DoubleConv(nn.Module):
@@ -93,20 +91,26 @@ class _Down(nn.Module):
 
 
 class _Up(nn.Module):
-    """Nearest 2x upsample, pad to the skip, concat ``[skip, upsampled]``,
-    double conv (reference unet.py:48-67).
+    """2x upsample, pad to the skip, concat ``[skip, upsampled]``, double conv
+    (reference unet.py:48-67). The upsampling is nearest, or with
+    ``upsample=False`` a ``ConvTranspose2d(C, C, 2, stride=2)`` of the
+    lower level's C = ``in_channels // 2`` channels, ``up`` (reference
+    unet.py:54-56; segtpu unet.py:122-125).
 
     The upsampled tensor is padded to the skip's size, as the reference
     does. segtpu pads the skip to the upsampled tensor instead
     (segtpu/models/unet.py:126), which is the same where H and W are
     multiples of 16 and raises elsewhere."""
 
-    def __init__(self, in_channels: int, features: int, block: type):
+    def __init__(self, in_channels: int, features: int, block: type, upsample: bool = True):
         super().__init__()
+        self.up = None if upsample else ConvTranspose2dTorch(in_channels // 2,
+                                                             in_channels // 2, 2, 2)
         self.conv = block(in_channels, features)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-        x1 = _pad_to_match(upsample_nearest(x1), x2)
+        x1 = upsample_nearest(x1) if self.up is None else self.up(x1)
+        x1 = _pad_to_match(x1, x2)
         return self.conv(torch.cat([x2, x1], 1))
 
 
@@ -122,11 +126,11 @@ class _OutConv(nn.Module):
 class UNet(nn.Module):
     """Classic U-Net (reference lib/models/unet.py:80-107; segtpu ``UNet``):
     4x down by max pool, 4x up by nearest upsampling with concatenated
-    skips, ``Dropout2d(0.5)`` before the 1x1 head. The deconvolution variant
-    (``upsample=False``) is not ported."""
+    skips, ``Dropout2d(0.5)`` before the 1x1 head. ``upsample=False``:
+    transposed convolutions in place of the nearest upsampling."""
 
     def __init__(self, n_channels: int = 3, n_classes: int = 1, n_filters: int = 32,
-                 abn: bool = False, final_dropout: float = 0.5):
+                 abn: bool = False, final_dropout: float = 0.5, upsample: bool = True):
         super().__init__()
         f, block = n_filters, DoubleConvABN if abn else DoubleConv
         self.inc = _Inc(n_channels, f, block)
@@ -134,10 +138,10 @@ class UNet(nn.Module):
         self.down2 = _Down(2 * f, 4 * f, block)
         self.down3 = _Down(4 * f, 8 * f, block)
         self.down4 = _Down(8 * f, 8 * f, block)
-        self.up1 = _Up(16 * f, 4 * f, block)
-        self.up2 = _Up(8 * f, 2 * f, block)
-        self.up3 = _Up(4 * f, f, block)
-        self.up4 = _Up(2 * f, f, block)
+        self.up1 = _Up(16 * f, 4 * f, block, upsample)
+        self.up2 = _Up(8 * f, 2 * f, block, upsample)
+        self.up3 = _Up(4 * f, f, block, upsample)
+        self.up4 = _Up(2 * f, f, block, upsample)
         self.finaldrop = Dropout2d(final_dropout)
         self.outc = _OutConv(f, n_classes)
 
@@ -151,7 +155,7 @@ class UNet(nn.Module):
         y = self.up2(y, x3)
         y = self.up3(y, x2)
         y = self.up4(y, x1)
-        return _logits(self.outc(self.finaldrop(y)))
+        return float_logits(self.outc(self.finaldrop(y)))
 
 
 class UNetABN(UNet):
@@ -226,7 +230,7 @@ class ZF_UNET(nn.Module):
             skips.append(x)
         for level, skip in zip(self.LEVELS[-2::-1], skips[-2::-1]):
             x = self._block(f"up_conv_{level}", torch.cat([upsample_nearest(x), skip], 1))
-        return _logits(self.conv_final(x))
+        return float_logits(self.conv_final(x))
 
 
 class Afterburner(nn.Module):

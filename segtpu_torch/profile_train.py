@@ -5,8 +5,8 @@
 Runs the training step of a bench config (``segtpu_torch.bench``; default
 ``linknet34-bce_jaccard-adam-512``, the step of ``chip_smoke.py``'s train
 phase) as the bench does: random weights from a seed, its batch and patch,
-bf16 autocast, its loss and optimizer at lr 1e-3, one fixed DeviceShapes
-batch; 3 warm steps, then 3 steps under ``torch.profiler``. Prints one JSON
+bf16 autocast, its loss and optimizer at lr 1e-3, its frozen encoder, one
+fixed DeviceShapes batch; 3 warm steps, then 3 steps under ``torch.profiler``. Prints one JSON
 object: the wall milliseconds per step, the device-busy milliseconds per
 step (the union of all kernel intervals) and the idle share, the kernel
 launches per step, the peak memory, and the device time per step by kernel
@@ -28,7 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from segtpu_torch.bench import BENCH_CONFIGS
 from segtpu_torch.data.shapes import DeviceShapes
-from segtpu_torch.models import get_model
+from segtpu_torch.models import get_model, without_encoder
 from segtpu_torch.ops.losses import get_loss
 from segtpu_torch.ops.metrics import default_metrics
 from segtpu_torch.profile_serve import group_of, union_ms
@@ -70,8 +70,11 @@ def main(argv=None) -> int:
 
     cfg = BENCH_CONFIGS[args.config]
     model = get_model(cfg["model_name"], patch_size=cfg["patch"], device="cuda", seed=SEED)
+    trainable = (without_encoder(cfg["model_name"], (n for n, _ in model.named_parameters()))
+                 if cfg.get("freeze_encoder") else None)
     step = make_train_step(model, get_optimizer(cfg["optimizer"], model.parameters(), LR),
-                           get_loss(cfg["loss_name"]), default_metrics(), bf16=True)
+                           get_loss(cfg["loss_name"]), default_metrics(), bf16=True,
+                           trainable_mask=trainable)
     x, y = DeviceShapes(cfg["patch"], device="cuda").batch(
         cfg["batch_size"], torch.Generator(device="cuda").manual_seed(SEED))
     for _ in range(WARMUP):

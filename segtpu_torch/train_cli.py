@@ -30,7 +30,7 @@ from segtpu_torch.data import get_dataset
 from segtpu_torch.data.pipeline import DataLoader, Subset
 from segtpu_torch.data.shapes import DeviceShapesSet
 from segtpu_torch.device import resolve_device
-from segtpu_torch.models import get_model, place_model
+from segtpu_torch.models import get_model, place_model, without_encoder
 from segtpu_torch.ops.losses import get_loss
 from segtpu_torch.ops.metrics import default_metrics
 from segtpu_torch.train.checkpoint import restore_snapshot, save_snapshot
@@ -39,19 +39,13 @@ from segtpu_torch.train.optim import cosine_annealing_lr, get_optimizer
 from segtpu_torch.train.state import make_eval_step, make_train_step
 from segtpu_torch.utils import count_parameters
 
-# Parameter-name prefixes of each model's encoder, the modules that segtpu's
-# ENCODER_SPECS path ``("encoder",)`` maps to (compat/jax_params.py).
-ENCODER_PREFIXES = {
-    "linknet34": ("firstconv.", "firstbn.", "encoder1.", "encoder2.", "encoder3.", "encoder4."),
-}
-
 # segtpu flags whose feature is not ported yet: each exits and names its
 # ROADMAP.md item instead of being ignored.
 LATER_FLAGS = (
     ("model_parallel", lambda v: v > 1, "--model-parallel",
      "slice 5 of ROADMAP.md (parallel modes: tensor parallel)"),
     ("s2d", bool, "--s2d", "slice 5 of ROADMAP.md (s2d mode) and A1"),
-    ("packed", bool, "--packed", "slice 4 of ROADMAP.md (tiramisu)"),
+    ("packed", bool, "--packed", "A18 of ROADMAP.md (tiramisu packed growth and remat_policy)"),
     ("device_augs", bool, "--device-augs",
      "slice 5 of ROADMAP.md (device augmentations) and A4 (augment_fn)"),
     ("encoder_weights", lambda v: v is not None, "--encoder-weights",
@@ -93,7 +87,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="Model-parallel mesh axis size (not yet ported: only 1)")
     parser.add_argument("--s2d", action="store_true", help="Space-to-depth mode (not yet ported)")
     parser.add_argument("--remat", action="store_true",
-                        help="Per-block rematerialization for models that have it (zf_unet)")
+                        help="Per-block rematerialization for models that have it (zf_unet, "
+                             "tiramisu*)")
     parser.add_argument("--packed", action="store_true",
                         help="Packed dense-block growth (not yet ported)")
     parser.add_argument("--light-logging", action="store_true",
@@ -223,11 +218,11 @@ def main(argv=None, *, param_penalty: Optional[Callable] = None,
 
     trainable = trainable_mask_fn(model) if trainable_mask_fn else None
     if args.freeze_encoder:
-        prefixes = ENCODER_PREFIXES.get(args.model.lower())
-        if prefixes is None:
-            raise SystemExit(f"--freeze-encoder: model '{args.model}' has no encoder subtree")
         names = trainable if trainable is not None else {n for n, _ in model.named_parameters()}
-        trainable = {n for n in names if not n.startswith(prefixes)}
+        try:
+            trainable = without_encoder(args.model, names)
+        except ValueError as e:
+            raise SystemExit(f"--freeze-encoder: {e}") from None
 
     loss_fn = get_loss(args.loss)
     optimizer = get_optimizer(args.optimizer, model.parameters(), args.learning_rate)

@@ -43,7 +43,7 @@ from segtpu_torch import regularization, train_cli, train_reg_cli
 from segtpu_torch.augment import host
 from segtpu_torch.compat.jax_params import state_dict_from_jax
 from segtpu_torch.data import get_dataset, pipeline, shapes
-from segtpu_torch.models import get_model
+from segtpu_torch.models import ENCODER_PREFIXES, get_model
 from segtpu_torch.ops import losses, meters, metrics
 from segtpu_torch.train import loop, optim
 from segtpu_torch.train.checkpoint import load_snapshot, restore_snapshot, save_snapshot
@@ -329,7 +329,7 @@ def test_freeze_encoder_set_matches_segtpu(linknet):
     _, params, stats = linknet
     (path,), = [encoder_paths("linknet34", params)]
     chosen, model = _selected(params, stats, lambda p: p[:len(path)] == path)
-    prefixes = train_cli.ENCODER_PREFIXES["linknet34"]
+    prefixes = ENCODER_PREFIXES["linknet34"]
     assert chosen == {n for n, _ in model.named_parameters() if n.startswith(prefixes)}
     assert len(chosen) == 3 + 16 * 6 + 3 * 3  # stem, 16 blocks, 3 downsample branches
 
@@ -530,7 +530,7 @@ def test_cli_freeze_encoder(tmp_path):
     d, _ = _experiment(tmp_path)
     after, _ = load_snapshot(str(d / "linknet34_snapshot.pth"))
     before = get_model("linknet34", device="cpu").state_dict()
-    prefixes = train_cli.ENCODER_PREFIXES["linknet34"]
+    prefixes = ENCODER_PREFIXES["linknet34"]
     params = [n for n, _ in get_model("linknet34", device="cpu").named_parameters()]
     frozen = [n for n in params if n.startswith(prefixes)]
     assert len(frozen) == 108

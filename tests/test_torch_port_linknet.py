@@ -60,12 +60,12 @@ def test_state_dict_from_jax_equals_export_state_dict(linknet):
 
 def test_state_dict_from_jax_rejects_unported_model():
     with pytest.raises(ValueError, match="not yet ported"):
-        state_dict_from_jax("tiramisu67", {}, {})
+        state_dict_from_jax("psp_net", {}, {})
 
 
 def test_get_model_rejects_unported_model():
     with pytest.raises(ValueError, match="not yet ported"):
-        get_model("tiramisu67", device="cpu")
+        get_model("psp_net", device="cpu")
 
 
 def test_get_model_without_device_raises_on_cpu_only_host(monkeypatch):

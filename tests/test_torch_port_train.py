@@ -309,13 +309,15 @@ def test_linknet34_eval_step_uses_running_stats(linknet_step):
 # ---------------------------------------------------------------------------
 
 def test_bench_config_matches_segtpu():
-    """Each of the port's bench configs is segtpu's, which runs zf_unet-512
-    in s2d form, the same function that the port computes in normal space."""
-    assert sorted(BENCH_CONFIGS) == ["linknet34-bce_jaccard-adam-512", "zf_unet-512"]
+    """The port's bench configs are segtpu's five training configs, which
+    run zf_unet-512 and unet11-finetune-512 in s2d form, the same function
+    that the port computes in normal space."""
+    train_configs = {k for k, v in jax_bench.BENCH_CONFIGS.items() if v["kind"] == "train"}
+    assert set(BENCH_CONFIGS) == train_configs and len(train_configs) == 5
     for name, config in BENCH_CONFIGS.items():
         want = dict(jax_bench.BENCH_CONFIGS[name])
         assert want.pop("kind") == "train"
-        assert want.pop("s2d", False) == (name == "zf_unet-512")
+        assert want.pop("s2d", False) == (name in ("zf_unet-512", "unet11-finetune-512"))
         assert config == want, name
 
 

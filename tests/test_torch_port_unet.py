@@ -43,7 +43,8 @@ from segtpu_torch.train import optim
 from segtpu_torch.train.checkpoint import load_snapshot
 from segtpu_torch.train.state import make_train_step
 
-from torch_port_util import _numpy_dicts, _randomise_norms
+from torch_port_util import (_grad_errors, _grad_recorder, _jax_variables, _nchw, _nhwc,
+                             _no_dropout, _numpy_dicts)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -54,44 +55,8 @@ def two_threads():
     torch.set_num_threads(threads)
 
 
-def _nchw(a: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2)))
-
-
-def _nhwc(t: torch.Tensor) -> np.ndarray:
-    return t.detach().numpy().transpose(0, 2, 3, 1)
-
-
-def _jax_variables(module, shape, seed=0):
-    """numpy (params, batch_stats) of a segtpu module for NHWC inputs of
-    ``shape``: the tree's shapes from ``jax.eval_shape`` (nothing compiled),
-    kernels drawn at torch's default scale U(+-1/sqrt(fan_in)), biases
-    U(+-0.1), normalisations randomised."""
-    tree = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros(shape),
-                                              train=False))
-    rng = np.random.RandomState(seed)
-
-    def draw(path, leaf):
-        bound = 0.1
-        if path[-1].key == "kernel":
-            bound = 1.0 / math.sqrt(int(np.prod(leaf.shape[:-1])))
-        return rng.uniform(-bound, bound, leaf.shape).astype(np.float32)
-
-    tree = _numpy_dicts(jax.tree_util.tree_map_with_path(draw, tree))
-    params, stats = tree["params"], tree["batch_stats"]
-    _randomise_norms(params, stats, np.random.RandomState(seed + 100))
-    return params, stats
-
-
 def _prefixed(state_dict, prefix):
     return {prefix + k: v for k, v in state_dict.items()}
-
-
-def _no_dropout(model):
-    for m in model.modules():
-        if isinstance(m, torch.nn.Dropout2d):
-            m.p = 0.0
-    return model
 
 
 # ---------------------------------------------------------------------------
@@ -254,23 +219,6 @@ def test_forward_matches_segtpu(kind, monkeypatch):
 # ---------------------------------------------------------------------------
 
 LR = 0.05
-
-
-def _grad_recorder(learning_rate):
-    """Plain SGD that keeps the gradients it was given in its state."""
-    def init(params):
-        return {"grads": jax.tree_util.tree_map(jnp.zeros_like, params)}
-
-    def update(grads, state, params=None):
-        return jax.tree_util.tree_map(lambda g: -learning_rate * g, grads), {"grads": grads}
-
-    return optax.GradientTransformation(init, update)
-
-
-def _grad_errors(got, want, floor):
-    """Per tensor: max |got - want| over max(max |want|, floor)."""
-    return sorted(float(np.abs(got[n] - w).max()) / max(float(np.abs(w).max()), floor)
-                  for n, w in want.items())
 
 
 def test_zf_unet_train_step_matches_segtpu(monkeypatch):
