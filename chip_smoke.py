@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (``segtpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ab-out DIR]
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -37,7 +37,11 @@ Phases, one JSON line each; any failure exits non-zero:
                batch 64, and the BatchNorm and InPlaceABN shapes of every
                model's step above), with its time, bytes and bound at the
                largest shape, at each model's largest training shape, and
-               modelled per step as kernel_b1
+               modelled per step as kernel_b1; beside its activation-none
+               form (the BatchNorm affine) one PyTorch call that computes
+               it, F.batch_norm over mean 0, variance 1 (eps 1e-12), held to
+               B2's bf16 gate and timed at 4x272x512^2, 16x32x512^2 and
+               16x64x256^2 and per step, as torch.var_mean beside B1
   model_parity LinkNet34 saved and reloaded through the .pth snapshot format,
                one 2x3x512x512 fp32 eval forward on the card vs the CPU
   serve        tiled inference as the submit CLI runs it (patch 512, batch 64,
@@ -110,6 +114,18 @@ Phases, one JSON line each; any failure exits non-zero:
   train_cli_albunet  the train CLI's albunet --freeze-encoder -d shapes-device
                -s 2 -e 1 at batch 16, patch 512, bf16, Adam: launches 2 x (72,
                36, 0); the last .pth holds the encoder as initialised
+  train_nuclei the accuracy A/B of python -m segtpu_torch.ab_nuclei: the
+               seeded nuclei fixture (48 images) in the DSB2018 layout, the
+               train CLI's -d dsb2018 legs at patch 128, batch 8, fp32, 10
+               epochs, zf_unet (bce, SGD lr 1e-3) and linknet34 (bce_jaccard,
+               Adam lr 1e-4), run seeds 20260819-21, each leg a train_cli
+               run with its launches (44/22/0 and 84/48/12 per step, the
+               eval pass's per validation batch); one line per config with
+               the port's, torch's and segtpu's val-IoU bands per epoch, the
+               final mean deltas, steps/s, the host loader's samples/s, the
+               TF32 flags and cv2's version; fails when the port's band lies
+               below the committed torch band at an epoch of the second
+               half. --ab-out writes comparison.md and the port's CSVs
   counters     after training, every cached counter buffer of the B1/B3
                reduction holds zeros
   one_launch   a torch.profiler count: one call of B1 (either form) or B3
@@ -121,7 +137,8 @@ Phases, one JSON line each; any failure exits non-zero:
 
 The kernel counts are set to 0 just before each main path (serve, train,
 train_zf_unet, train_unet_abn, train_tiramisu67, train_albunet,
-train_unet11, each train_cli run, train_ab_cli, train_cli_albunet) and read
+train_unet11, each train_cli run, train_ab_cli, train_cli_albunet, each
+train_nuclei leg) and read
 just after it. Then the kernel table line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from a seed,
 with the normalisation statistics set from one calibration batch so that every
@@ -130,6 +147,7 @@ layer sees activations of order one.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
@@ -144,9 +162,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from segtpu_torch import train_ab_cli, train_cli
+from segtpu_torch import ab_nuclei, train_ab_cli, train_cli
 from segtpu_torch.augment import host as aug
+from segtpu_torch.data import get_dataset
 from segtpu_torch.data.inria import INRIA_MEAN, INRIA_STD
 from segtpu_torch.data.pipeline import DataLoader, Subset
 from segtpu_torch.data.shapes import DeviceShapes, ShapesDataset, to_nchw
@@ -205,9 +225,9 @@ CLI_STEPS, CLI_VAL_BATCHES = 1024 // TRAIN_BATCH, 128 // TRAIN_BATCH
 # The main paths, and those that run each kernel. train_unet11 runs none:
 # TernausNet has no normalisation layer.
 PATHS = ("serve", "train", "train_zf_unet", "train_unet_abn", "train_tiramisu67", "train_albunet",
-         "train_unet11", "train_cli", "train_ab_cli", "train_cli_albunet")
+         "train_unet11", "train_cli", "train_ab_cli", "train_cli_albunet", "train_nuclei")
 BN_PATHS = ("train_zf_unet", "train_tiramisu67", "train_albunet", "train_cli_albunet")
-ABN_PATHS = ("train", "train_unet_abn", "train_cli", "train_ab_cli")
+ABN_PATHS = ("train", "train_unet_abn", "train_cli", "train_ab_cli", "train_nuclei")
 KERNEL_PATHS = {
     "channel_sums": ABN_PATHS + BN_PATHS,
     "abn_norm_act": ("serve",) + ABN_PATHS + BN_PATHS,
@@ -226,8 +246,13 @@ CARD_RATES = (
 )
 
 
+# The script's start, for the seconds since it of each phase line.
+STARTED = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": round(time.perf_counter() - STARTED, 1)}), flush=True)
 
 
 def card_rates(name: str):
@@ -755,6 +780,22 @@ def phase_kernel_b3(card: str, norm_shapes):
     return dict(largest, largest_linknet34=largest_linknet34, per_step=per_step), max_err
 
 
+# The shapes at which kernel_b2 times F.batch_norm beside B2's BatchNorm
+# affine: tiramisu67's largest, ZF_UNET's largest and the 16x64x256^2 call.
+BATCH_NORM_SHAPES = ((4, 272, 512, 512), (16, 32, 512, 512), (16, 64, 256, 256))
+
+
+def batch_norm_affine(x, scale, shift):
+    """``x * scale + shift`` per channel as one PyTorch call, eval-mode
+    ``F.batch_norm`` over mean 0 and variance 1: a call that computes B2's
+    activation-none form. torch wants eps > 0; 1 + 1e-12 rounds to 1 in
+    fp32, where the bf16 path computes 1/sqrt(var + eps). Returns the call,
+    its constant statistics made once."""
+    zeros = torch.zeros(x.shape[1], device=x.device)
+    ones = torch.ones(x.shape[1], device=x.device)
+    return lambda: F.batch_norm(x, zeros, ones, scale, shift, training=False, eps=1e-12)
+
+
 def phase_kernel_b2(card: str, norm_shapes):
     """The kernel against its plain version, then its time at the main paths' shapes."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -806,11 +847,30 @@ def phase_kernel_b2(card: str, norm_shapes):
     largest_training = largest_training_by_model[_model_of(
         norm_shapes, ("bn",), _largest([s for m in norm_shapes.values() for s in m["bn"]]))]
 
+    # B2's activation-none form, the BatchNorm affine, in one PyTorch call
+    library = {}
+    for shape in BATCH_NORM_SHAPES:
+        x, scale, shift = inputs(shape, torch.bfloat16, "channels_last")
+        affine = batch_norm_affine(x, scale, shift)
+        got = affine()
+        want = abn_norm_act_plain(x, scale, shift, "none", SLOPE)
+        err = (got.float() - want.float()).abs()
+        if (got.dtype != x.dtype or bool((err > tol[torch.bfloat16][0] * want.float().abs()).any())
+                or not bool(torch.isfinite(got.float()).all())):
+            raise AssertionError(f"kernel_b2: F.batch_norm {shape} {got.dtype} misses B2's bf16 "
+                                 f"gate: max err {err.max().item()}")
+        row = timing(shape, "none")
+        row.update(library_ms=cuda_ms(affine), library_max_abs_err=err.max().item())
+        row["kernel_over_library"] = row["ms"] / row["library_ms"]
+        library["x".join(map(str, shape))] = row
+        del x, got, want, err
+
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     timed = time_shapes(
         card, set(train_cases), lambda shape, act: inputs(shape, torch.bfloat16, "channels_last"),
         lambda args, act: kernels.abn_norm_act_cuda(*args, act, SLOPE),
-        lambda args, act: abn_norm_act_plain(*args, act, SLOPE), lambda args, act: None,
+        lambda args, act: abn_norm_act_plain(*args, act, SLOPE),
+        lambda args, act: batch_norm_affine(*args) if act == "none" else None,
         lambda n, c, act: 2 * n * 2 + 2 * 4 * c, lambda n, act: 3 * n, flush)
     del flush
     per_step, per_step_shapes = {}, {}
@@ -826,13 +886,17 @@ def phase_kernel_b2(card: str, norm_shapes):
          rate_source=rate_src, hbm_bytes_per_s=bw, largest=largest,
          largest_training=largest_training, largest_training_by_model=largest_training_by_model,
          training_shapes=len(train_cases), per_step=per_step, per_step_shapes=per_step_shapes,
+         batch_norm_affine=dict(call="F.batch_norm(x, 0, 1, scale, shift, training=False, "
+                                     "eps=1e-12)", tolerance="rtol 8e-3 (one bf16 ulp)",
+                                by_shape=library),
          per_forward=dict(launches=len(shapes), ms=sum(t["ms"] for t in per_shape),
                           plain_ms=sum(t["plain_ms"] for t in per_shape),
                           bound_ms=sum(t["bound_ms"] for t in per_shape),
                           bytes=sum(t["bytes"] for t in per_shape)),
          per_shape=per_shape)
     return (dict(largest, largest_training=largest_training,
-                 largest_training_by_model=largest_training_by_model, per_step=per_step),
+                 largest_training_by_model=largest_training_by_model, per_step=per_step,
+                 batch_norm_affine=library),
             max(max_err.values()))
 
 
@@ -1393,11 +1457,12 @@ class EpochTimer:
 
 
 def cli_run(label, argv, train_steps, val_batches, step_ms, event_epoch=None,
-            main=train_cli.main, step_launches=STEP_LAUNCHES, eval_launches=EVAL_LAUNCHES):
+            main=train_cli.main, step_launches=STEP_LAUNCHES, eval_launches=EVAL_LAUNCHES,
+            batch=TRAIN_BATCH):
     """One in-process run of the train CLI (or of ``main``, a trainer built
-    on it) with its launches, times and peak memory; fails unless the
-    launches are the layer count: ``step_launches`` per train step and
-    ``eval_launches`` per validation batch."""
+    on it) at ``batch`` with its launches, times and peak memory; fails
+    unless the launches are the layer count: ``step_launches`` per train step
+    and ``eval_launches`` per validation batch."""
     timer = EpochTimer(event_epoch)
     train_cli.run_train_epoch, train_cli.run_validate_epoch = timer.train, timer.validate
     torch.cuda.synchronize()
@@ -1418,8 +1483,8 @@ def cli_run(label, argv, train_steps, val_batches, step_ms, event_epoch=None,
                val_loss=history["val_loss"], train_steps=train_steps, val_batches=val_batches,
                launches=launches, expected_launches=expected, seconds=seconds,
                train_epoch_s=timer.train_s, val_epoch_s=timer.val_s,
-               images_per_s_train=train_steps * TRAIN_BATCH / sum(timer.train_s),
-               images_per_s_with_val=(train_steps * TRAIN_BATCH
+               images_per_s_train=train_steps * batch / sum(timer.train_s),
+               images_per_s_with_val=(train_steps * batch
                                       / (sum(timer.train_s) + sum(timer.val_s))),
                ms_per_step=[t * 1e3 / steps_per_epoch for t in timer.train_s],
                train_phase_ms_per_step=step_ms, max_memory_allocated=torch.cuda.max_memory_allocated())
@@ -1564,6 +1629,81 @@ def phase_train_cli_albunet(step_ms: float, tmpdir: Path):
     return out["launches"]
 
 
+# The nuclei A/B's per-step launches; eval-mode BatchNorm runs no kernel of
+# this repo, so ZF_UNET's validation launches none.
+NUCLEI_LAUNCHES = {"zf_unet": (MODEL_STEP_LAUNCHES["zf_unet"], NO_LAUNCHES),
+                   "linknet34": (STEP_LAUNCHES, EVAL_LAUNCHES)}
+
+
+def nuclei_loader_rate(data_dir: Path, seed: int) -> float:
+    """Samples/s of one seeded epoch of the host loader alone over the
+    fixture's train patches (batch 8, 4 threads, the train augmentations)."""
+    train, _, _ = get_dataset("dsb2018", str(data_dir), patch_size=ab_nuclei.PATCH)
+    loader = DataLoader(train, ab_nuclei.BATCH, shuffle=True, workers=4, seed=seed,
+                        sample_seed=seed)
+    t0 = time.perf_counter()
+    n = sum(len(x) for x, _ in loader)
+    return n / (time.perf_counter() - t0)
+
+
+def phase_train_nuclei(card: str, tmpdir: Path, ab_out=None):
+    """The nuclei-fixture accuracy A/B (``python -m segtpu_torch.ab_nuclei``):
+    six legs of the train CLI on the card, each counted and checked as a
+    train_cli run, then the port's val-IoU band of each config against the
+    committed torch band; fails when the band falls below it at an epoch of
+    the second half."""
+    import cv2
+
+    tf32 = dict(cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+                matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    legs, launches, sizes = {m: [] for m in NUCLEI_LAUNCHES}, Counter(), {}
+
+    def run_leg(argv, model):
+        if not sizes:
+            data_dir = argv[argv.index("-dd") + 1]
+            train, valid, _ = get_dataset("dsb2018", data_dir,
+                                                    patch_size=ab_nuclei.PATCH)
+            sizes.update(train=len(train), valid=len(valid))
+        per_epoch = sizes["train"] // ab_nuclei.BATCH, sizes["valid"] // ab_nuclei.BATCH
+        step, evals = NUCLEI_LAUNCHES[model]
+        seed = int(argv[argv.index("--seed") + 1])
+        _, out = cli_run(f"{model}_s{seed}", argv, ab_nuclei.EPOCHS * per_epoch[0],
+                         ab_nuclei.EPOCHS * per_epoch[1], None, step_launches=step,
+                         eval_launches=evals, batch=ab_nuclei.BATCH)
+        launches.update(out["launches"])
+        out["steps_per_s"] = out["train_steps"] / sum(out["train_epoch_s"])
+        legs[model].append(out)
+        for f in Path(argv[argv.index("--experiments-dir") + 1]).rglob("*.pth"):
+            f.unlink()
+
+    t0 = time.perf_counter()
+    verdicts = ab_nuclei.run(tmpdir / "ab_nuclei", ab_out, run_leg=run_leg, card=card)
+    seconds = time.perf_counter() - t0
+    loader = nuclei_loader_rate(tmpdir / "ab_nuclei" / "data" / "dsb2018", ab_nuclei.RUN_SEEDS[0])
+    for model, v in verdicts.items():
+        runs = legs[model]
+        emit("train_nuclei", config=model, epochs=v["epochs"], ok=v["ok"],
+             bands=[{k: r[k] for k in ("epoch", "torch", "port", "segtpu", "relation")}
+                    for r in v["rows"]],
+             final=v["final"], delta_vs_torch=v["delta_vs_torch"],
+             delta_vs_segtpu=v["delta_vs_segtpu"],
+             steps_per_s=sum(r["train_steps"] for r in runs) / sum(sum(r["train_epoch_s"])
+                                                                  for r in runs),
+             loader_samples_per_s=loader, **tf32, cv2_version=cv2.__version__,
+             train_set=sizes["train"], valid_set=sizes["valid"],
+             legs=[{k: r[k] for k in ("run", "seconds", "steps_per_s", "images_per_s_train",
+                                      "images_per_s_with_val", "train_steps", "val_batches",
+                                      "launches", "expected_launches", "max_memory_allocated",
+                                      "host_syncs_per_train_epoch")} for r in runs])
+    ok = all(v["ok"] for v in verdicts.values())
+    emit("train_nuclei", seconds=seconds, launches=dict(launches),
+         written_to=None if ab_out is None else str(ab_out), ok=ok)
+    if not ok:
+        raise AssertionError("train_nuclei: the port's val-IoU band falls below the torch band "
+                             "at an epoch of the second half")
+    return dict(launches)
+
+
 def busy_share(trace_path: Path) -> dict:
     """The device's busy and idle share over a torch.profiler Chrome trace:
     the union of its kernels, copies and sets against the span of all its
@@ -1639,7 +1779,11 @@ def _per_step_entry(per_step):
     return {model: {k: sums[k] for k in keys if k in sums} for model, sums in per_step.items()}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Smoke run of segtpu_torch on one GPU")
+    parser.add_argument("--ab-out", default=None,
+                        help="Write train_nuclei's comparison.md and the port's CSVs here")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
         return 2
@@ -1671,6 +1815,9 @@ def main() -> int:
         counts["train_cli"] = phase_train_cli(step_ms, Path(tmp))
         counts["train_ab_cli"] = phase_train_ab_cli(step_ms, Path(tmp))
         counts["train_cli_albunet"] = phase_train_cli_albunet(albunet_ms, Path(tmp))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        counts["train_nuclei"] = phase_train_nuclei(card, Path(tmp), args.ab_out)
     counters = kernels.counter_buffers()
     if not counters or any(int(buf.count_nonzero()) for buf in counters):
         raise AssertionError("the B1/B3 counter buffers are not all zero after training: "
@@ -1697,6 +1844,7 @@ def main() -> int:
                      sum(by_path["abn_norm_act"].values()), b2_err, dict(b2, library_ms=None),
                      largest_training=b2["largest_training"],
                      largest_training_by_model=b2["largest_training_by_model"],
+                     batch_norm_affine=b2["batch_norm_affine"],
                      per_step=_per_step_entry(b2["per_step"]),
                      launches_by_path=by_path["abn_norm_act"]),
         kernel_entry("B3", "abn_bwd", "segtpu/ops/bn_alt.py:216", sum(by_path["abn_bwd"].values()),

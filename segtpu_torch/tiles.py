@@ -108,6 +108,15 @@ class ImageSlicer:
         return [np.ascontiguousarray(padded[y:y + th, x:x + tw])
                 for x, y, tw, th in self.crops]
 
+    def cut_patch(self, image: np.ndarray, slice_index: int) -> np.ndarray:
+        """Tile ``crops[slice_index]`` of ``image`` alone, as :meth:`split`
+        cuts it (reference cut_patch, tiles.py:119-135)."""
+        if image.shape[:2] != (self.image_height, self.image_width):
+            raise ValueError(f"image of shape {image.shape} does not match the slicer's "
+                             f"{(self.image_height, self.image_width)}")
+        x, y, tw, th = self.crops[slice_index]
+        return np.ascontiguousarray(self.pad(image)[y:y + th, x:x + tw])
+
     @property
     def target_shape(self):
         return (self.image_height + self.margin_bottom + self.margin_top,

@@ -9,8 +9,9 @@ segtpu's, plus ``--device``; runs on CUDA unless ``--device cpu``.
     python -m segtpu_torch.train_cli -m linknet34 -d shapes-device -l bce_jaccard \\
         -o adam -b 16 -p 512 -e 2 --bf16 --no-tensorboard
 
-Needs neither pandas, tqdm, cv2 nor scikit-learn; tensorboardX only when
-the writer is on (no ``--no-tensorboard``).
+Needs neither pandas, tqdm nor scikit-learn; cv2 for the datasets on files
+(``dsb2018``, ``inria*``); tensorboardX only when the writer is on (no
+``--no-tensorboard``).
 """
 
 from __future__ import annotations

@@ -48,6 +48,21 @@ def read_rgb(fname: str) -> np.ndarray:
     return cv2.cvtColor(x, cv2.COLOR_BGR2RGB)
 
 
+def read_gray(fname: str) -> np.ndarray:
+    """Read an image file as grayscale uint8 HW."""
+    import cv2
+
+    x = cv2.imread(fname, cv2.IMREAD_GRAYSCALE)
+    if x is None:
+        raise IOError(f"cannot read image {fname}")
+    return x
+
+
+def read_mask(fname: str) -> np.ndarray:
+    """Read a mask file as binary {0,1} uint8 HW (reference lib/common.py:46-50)."""
+    return (read_gray(fname) > 0).astype(np.uint8)
+
+
 def count_parameters(model: nn.Module) -> Tuple[int, int]:
     """(total, trainable) parameter counts (reference lib/common.py:15-20),
     with segtpu's meaning: both are the full count, whatever is frozen."""

@@ -256,12 +256,6 @@ def test_host_shapes_split_matches_segtpu():
         assert np.array_equal(a[3][0], b[3][0])
 
 
-@pytest.mark.parametrize("name", ["dsb2018", "inria", "inria-small", "inria-1024", "inria-512"])
-def test_datasets_of_a_later_slice_raise(name):
-    with pytest.raises(ValueError, match="slice 5"):
-        get_dataset(name, patch_size=512)
-
-
 # ---------------------------------------------------------------------------
 # Grids, parameter counts, the penalty, the frozen set
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@ checkpoint format."""
 import pkgutil
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -105,15 +106,19 @@ def port_modules():
 
 
 def test_port_imports_neither_jax_nor_segtpu():
+    """Nor scikit-learn, which the card's machine does not have; nor does
+    chip_smoke.py."""
     modules = port_modules()
     assert {"segtpu_torch.profile_reduce", "segtpu_torch.train_cli",
             "segtpu_torch.data.pipeline", "segtpu_torch.models.unet",
-            "segtpu_torch.models.afterburner_stack", "segtpu_torch.train_ab_cli"} <= set(modules)
+            "segtpu_torch.models.afterburner_stack", "segtpu_torch.train_ab_cli",
+            "segtpu_torch.data.split", "segtpu_torch.data.dsb2018",
+            "segtpu_torch.ab_nuclei"} <= set(modules)
     code = (
         "import importlib, sys\n"
-        f"for m in {modules!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-        "or m == 'segtpu' or m.startswith('segtpu.'))\n"
+        f"sys.path.insert(0, {str(Path(__file__).resolve().parent.parent)!r})\n"
+        f"for m in {modules + ['chip_smoke']!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'segtpu', 'sklearn'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
