@@ -22,20 +22,25 @@ Phases, one JSON line each; any failure exits non-zero:
                their summed bound (var_mean's sum over the single-form calls
                beside it); tiramisu57's calls that take the scalar-load plan
                (C not a multiple of 8) apart; and two calls giving the same
-               bits at the largest and the smallest step shape. Times are
+               bits at the largest and the smallest step shape; and in fp32
+               channels_last, both forms at every BatchNorm and InPlaceABN
+               shape of the nuclei A/B's fp32 steps (LinkNet34 and ZF_UNET
+               at batch 8, patch 128), checked, not timed. Times are
                device times (segtpu_torch.profile_reduce.cuda_ms: a spin
                kernel keeps the device busy while the host launches)
   kernel_b3    the from-output ABN backward kernel against its plain version
                (the same cases, three activations, then the InPlaceABN shapes
                of LinkNet34's and UNetABN's steps), with its time, bytes and
                bound at the largest and at LinkNet34's largest, the same
-               per-shape times and per-step models (12 and 18 calls), and
-               the repeat check
+               per-shape times and per-step models (12 and 18 calls), the
+               repeat check, and LinkNet34's InPlaceABN shapes of the nuclei
+               A/B's fp32 steps in fp32 channels_last
   kernel_b2    the fused BN+activation kernel against its plain PyTorch version
                (fp32/bf16, channels_last/NCHW, three activations, a ragged
                tail, the twelve decoder shapes of a LinkNet34 pass at tile
-               batch 64, and the BatchNorm and InPlaceABN shapes of every
-               model's step above), with its time, bytes and bound at the
+               batch 64, the BatchNorm and InPlaceABN shapes of every
+               model's step above, and in fp32 channels_last those of the
+               nuclei A/B's steps, none and leaky_relu), with its time, bytes and bound at the
                largest shape, at each model's largest training shape, and
                modelled per step as kernel_b1; beside its activation-none
                form (the BatchNorm affine) one PyTorch call that computes
@@ -120,12 +125,17 @@ Phases, one JSON line each; any failure exits non-zero:
                epochs, zf_unet (bce, SGD lr 1e-3) and linknet34 (bce_jaccard,
                Adam lr 1e-4), run seeds 20260819-21, each leg a train_cli
                run with its launches (44/22/0 and 84/48/12 per step, the
-               eval pass's per validation batch); one line per config with
-               the port's, torch's and segtpu's val-IoU bands per epoch, the
-               final mean deltas, steps/s, the host loader's samples/s, the
-               TF32 flags and cv2's version; fails when the port's band lies
+               eval pass's per validation batch), under ab_nuclei's
+               reference precision (TF32 off, cuDNN deterministic); one line
+               per config with the port's, torch's and segtpu's val-IoU
+               bands per epoch, the final mean deltas, steps/s, the host
+               loader's samples/s, the TF32 and determinism flags the legs
+               ran with and cv2's version; fails when the port's band lies
                below the committed torch band at an epoch of the second
-               half. --ab-out writes comparison.md and the port's CSVs
+               half or a leg ran with TF32 on. Then the first two epochs of
+               linknet34's first leg again, and whether their losses and
+               val IoU repeat the leg's bits. --ab-out writes comparison.md
+               and the port's CSVs
   counters     after training, every cached counter buffer of the B1/B3
                reduction holds zeros
   one_launch   a torch.profiler count: one call of B1 (either form) or B3
@@ -576,9 +586,11 @@ def by_model_largest(norm_shapes, kinds, timing):
     return out
 
 
-def phase_kernel_b1(card: str, norm_shapes):
+def phase_kernel_b1(card: str, norm_shapes, fp32_shapes):
     """B1 against its plain version, then its time at the largest shapes of
-    the training steps. ``norm_shapes``: model -> :func:`step_norm_shapes`."""
+    the training steps. ``norm_shapes``: model -> :func:`step_norm_shapes`
+    of the bf16 steps; ``fp32_shapes``: the same of the fp32 steps (the
+    nuclei A/B), checked in fp32 channels_last, not timed."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     n_cases, max_err, max_rel = 0, 0.0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -599,6 +611,14 @@ def phase_kernel_b1(card: str, norm_shapes):
             err, rel = _b1_case(a, b)
             max_err, max_rel, n_cases = max(max_err, err), max(max_rel, rel), n_cases + 1
             del a, b
+    fp32_unique, fp32_err = _unique(fp32_shapes, ("bn", "abn")), 0.0
+    for shape in fp32_unique:
+        for pair in (False, True):
+            a = cuda_input(shape, torch.float32, "channels_last", g)
+            b = cuda_input(shape, torch.float32, "channels_last", g, 0.0, 1.0) if pair else None
+            err, rel = _b1_case(a, b)
+            fp32_err, max_rel, n_cases = max(fp32_err, err), max(max_rel, rel), n_cases + 1
+    max_err = max(max_err, fp32_err)
 
     def largest_timing(shape):
         a = cuda_input(shape, torch.bfloat16, "channels_last", g)
@@ -672,7 +692,8 @@ def phase_kernel_b1(card: str, norm_shapes):
                        ms_modelled_cold=sum(r["calls_per_step"] * r["ms"] for r in scalar),
                        bound_ms_modelled=sum(r["calls_per_step"] * r["bound_ms"] for r in scalar),
                        per_shape=scalar)
-    emit("kernel_b1", cases=n_cases, step_shapes=len(unique), max_abs_err=max_err,
+    emit("kernel_b1", cases=n_cases, step_shapes=len(unique), fp32_step_shapes=len(fp32_unique),
+         fp32_step_max_abs_err=fp32_err, max_abs_err=max_err,
          max_err_over_sum_abs=max_rel,
          tolerance=f"per channel |err| <= {RTOL_SUM} * sum|term| + 1e-6",
          largest=largest, largest_by_model=largest_by_model, scalar_loads=scalar_path,
@@ -714,9 +735,10 @@ def _abn_output(shape, dtype, layout, act, g):
     return z, grad, gamma, beta
 
 
-def phase_kernel_b3(card: str, norm_shapes):
+def phase_kernel_b3(card: str, norm_shapes, fp32_shapes):
     """B3 against its plain version, then its time at the largest InPlaceABN
-    shapes of the training steps."""
+    shapes of the bf16 training steps; the ABN shapes of the fp32 steps
+    (``fp32_shapes``) checked, not timed."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 20)
     n_cases, max_err, max_rel = 0, 0.0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -731,6 +753,12 @@ def phase_kernel_b3(card: str, norm_shapes):
         err, rel = _b3_case(*_abn_output(shape, torch.bfloat16, "channels_last", "leaky_relu", g),
                             "leaky_relu")
         max_err, max_rel, n_cases = max(max_err, err), max(max_rel, rel), n_cases + 1
+    fp32_unique, fp32_err = _unique(fp32_shapes, ("abn",)), 0.0
+    for shape in fp32_unique:
+        err, rel = _b3_case(*_abn_output(shape, torch.float32, "channels_last", "leaky_relu", g),
+                            "leaky_relu")
+        fp32_err, max_rel, n_cases = max(fp32_err, err), max(max_rel, rel), n_cases + 1
+    max_err = max(max_err, fp32_err)
 
     def b3_bytes(n, c, form):
         return 2 * n * 2 + 2 * 4 * c + 2 * 4 * c  # z, g read; gamma, beta read; two sums written
@@ -771,7 +799,8 @@ def phase_kernel_b3(card: str, norm_shapes):
         if per_step[model]["calls_modelled"] != MODEL_STEP_LAUNCHES[model]["abn_bwd"]:
             raise AssertionError(f"kernel_b3: {per_step[model]['calls_modelled']} calls per "
                                  f"{model} step, expected {MODEL_STEP_LAUNCHES[model]['abn_bwd']}")
-    emit("kernel_b3", cases=n_cases, step_shapes=len(unique), max_abs_err=max_err,
+    emit("kernel_b3", cases=n_cases, step_shapes=len(unique), fp32_step_shapes=len(fp32_unique),
+         fp32_step_max_abs_err=fp32_err, max_abs_err=max_err,
          max_err_over_sum_abs=max_rel,
          tolerance=f"per channel |err| <= {RTOL_SUM} * sum|term| + 1e-6",
          largest=largest, largest_linknet34=largest_linknet34,
@@ -796,8 +825,9 @@ def batch_norm_affine(x, scale, shift):
     return lambda: F.batch_norm(x, zeros, ones, scale, shift, training=False, eps=1e-12)
 
 
-def phase_kernel_b2(card: str, norm_shapes):
-    """The kernel against its plain version, then its time at the main paths' shapes."""
+def phase_kernel_b2(card: str, norm_shapes, fp32_shapes):
+    """The kernel against its plain version, then its time at the main paths'
+    shapes; the fp32 steps' calls (``fp32_shapes``) checked, not timed."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     tol = {torch.float32: (0.0, 1e-6), torch.bfloat16: (8e-3, 0.0)}
 
@@ -824,6 +854,12 @@ def phase_kernel_b2(card: str, norm_shapes):
     for shape, act in [(s, "leaky_relu") for s in shapes] + train_cases:
         err = _check(*inputs(shape, torch.bfloat16, "channels_last"), act, tol[torch.bfloat16])
         max_err[torch.bfloat16] = max(max_err[torch.bfloat16], err)
+        n_cases += 1
+    fp32_cases = sorted({(s, "none") for sh in fp32_shapes.values() for s in sh["bn"]}
+                        | {(s, "leaky_relu") for sh in fp32_shapes.values() for s in sh["abn"]})
+    for shape, act in fp32_cases:
+        err = _check(*inputs(shape, torch.float32, "channels_last"), act, tol[torch.float32])
+        max_err[torch.float32] = max(max_err[torch.float32], err)
         n_cases += 1
     big = max(shapes, key=lambda s: int(np.prod(s)))
     err = _check(*inputs(big, torch.float32, "nchw"), "leaky_relu", tol[torch.float32])
@@ -885,7 +921,7 @@ def phase_kernel_b2(card: str, norm_shapes):
                                                                "bf16": "rtol 8e-3 (one bf16 ulp)"},
          rate_source=rate_src, hbm_bytes_per_s=bw, largest=largest,
          largest_training=largest_training, largest_training_by_model=largest_training_by_model,
-         training_shapes=len(train_cases), per_step=per_step, per_step_shapes=per_step_shapes,
+         training_shapes=len(train_cases), fp32_training_cases=len(fp32_cases), per_step=per_step, per_step_shapes=per_step_shapes,
          batch_norm_affine=dict(call="F.batch_norm(x, 0, 1, scale, shift, training=False, "
                                      "eps=1e-12)", tolerance="rtol 8e-3 (one bf16 ulp)",
                                 by_shape=library),
@@ -1654,11 +1690,11 @@ def phase_train_nuclei(card: str, tmpdir: Path, ab_out=None):
     the second half."""
     import cv2
 
-    tf32 = dict(cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
-                matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
-    legs, launches, sizes = {m: [] for m in NUCLEI_LAUNCHES}, Counter(), {}
+    legs, launches, sizes, flags = {m: [] for m in NUCLEI_LAUNCHES}, Counter(), {}, set()
 
     def run_leg(argv, model):
+        flags.add((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+                   torch.backends.cudnn.deterministic))
         if not sizes:
             data_dir = argv[argv.index("-dd") + 1]
             train, valid, _ = get_dataset("dsb2018", data_dir,
@@ -1667,11 +1703,12 @@ def phase_train_nuclei(card: str, tmpdir: Path, ab_out=None):
         per_epoch = sizes["train"] // ab_nuclei.BATCH, sizes["valid"] // ab_nuclei.BATCH
         step, evals = NUCLEI_LAUNCHES[model]
         seed = int(argv[argv.index("--seed") + 1])
-        _, out = cli_run(f"{model}_s{seed}", argv, ab_nuclei.EPOCHS * per_epoch[0],
-                         ab_nuclei.EPOCHS * per_epoch[1], None, step_launches=step,
-                         eval_launches=evals, batch=ab_nuclei.BATCH)
+        history, out = cli_run(f"{model}_s{seed}", argv, ab_nuclei.EPOCHS * per_epoch[0],
+                               ab_nuclei.EPOCHS * per_epoch[1], None, step_launches=step,
+                               eval_launches=evals, batch=ab_nuclei.BATCH)
         launches.update(out["launches"])
-        out["steps_per_s"] = out["train_steps"] / sum(out["train_epoch_s"])
+        out.update(steps_per_s=out["train_steps"] / sum(out["train_epoch_s"]),
+                   history=history)
         legs[model].append(out)
         for f in Path(argv[argv.index("--experiments-dir") + 1]).rglob("*.pth"):
             f.unlink()
@@ -1679,6 +1716,9 @@ def phase_train_nuclei(card: str, tmpdir: Path, ab_out=None):
     t0 = time.perf_counter()
     verdicts = ab_nuclei.run(tmpdir / "ab_nuclei", ab_out, run_leg=run_leg, card=card)
     seconds = time.perf_counter() - t0
+    tf32 = dict(zip(("cudnn_allow_tf32", "matmul_allow_tf32", "cudnn_deterministic"),
+                    map(list, zip(*flags))))
+    repeat = repeat_leg(legs["linknet34"][0], tmpdir / "ab_nuclei_repeat")
     loader = nuclei_loader_rate(tmpdir / "ab_nuclei" / "data" / "dsb2018", ab_nuclei.RUN_SEEDS[0])
     for model, v in verdicts.items():
         runs = legs[model]
@@ -1696,12 +1736,30 @@ def phase_train_nuclei(card: str, tmpdir: Path, ab_out=None):
                                       "launches", "expected_launches", "max_memory_allocated",
                                       "host_syncs_per_train_epoch")} for r in runs])
     ok = all(v["ok"] for v in verdicts.values())
-    emit("train_nuclei", seconds=seconds, launches=dict(launches),
+    emit("train_nuclei", seconds=seconds, launches=dict(launches), repeat=repeat,
          written_to=None if ab_out is None else str(ab_out), ok=ok)
     if not ok:
         raise AssertionError("train_nuclei: the port's val-IoU band falls below the torch band "
                              "at an epoch of the second half")
+    if flags != {(False, False, True)}:
+        raise AssertionError(f"train_nuclei: legs ran with TF32 or nondeterministic cuDNN: {tf32}")
     return dict(launches)
+
+
+def repeat_leg(leg: dict, exp_dir: Path, epochs: int = 2) -> dict:
+    """The first ``epochs`` epochs of ``leg`` again, in a new experiments
+    directory, under the A/B's precision: whether the train loss, val loss
+    and val IoU of each epoch repeat the leg's bits. Its launches are not
+    part of the path's count."""
+    argv = list(leg["argv"])
+    argv[argv.index("-e") + 1] = str(epochs)
+    argv[argv.index("--experiments-dir") + 1] = str(exp_dir)
+    with ab_nuclei.reference_precision():
+        history = train_cli.main(argv)
+    keys = ("loss", "val_loss", "val_iou")
+    first = {k: leg["history"][k][:epochs] for k in keys}
+    again = {k: history[k] for k in keys}
+    return dict(run=leg["run"], epochs=epochs, same_bits=first == again, leg=first, again=again)
 
 
 def busy_share(trace_path: Path) -> dict:
@@ -1790,10 +1848,12 @@ def main(argv=None) -> int:
     card, smi = phase_device()
     phase_build()
     norm_shapes = {m: step_norm_shapes(b, PATCH, model_name=m) for m, b in KERNEL_MODELS.items()}
+    nuclei_shapes = {m: step_norm_shapes(ab_nuclei.BATCH, ab_nuclei.PATCH, model_name=m)
+                     for m in NUCLEI_LAUNCHES}
     torch.cuda.empty_cache()
-    b1, b1_err = phase_kernel_b1(card, norm_shapes)
-    b3, b3_err = phase_kernel_b3(card, norm_shapes)
-    b2, b2_err = phase_kernel_b2(card, norm_shapes)
+    b1, b1_err = phase_kernel_b1(card, norm_shapes, nuclei_shapes)
+    b3, b3_err = phase_kernel_b3(card, norm_shapes, nuclei_shapes)
+    b2, b2_err = phase_kernel_b2(card, norm_shapes, nuclei_shapes)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         state_dict = phase_model_parity(Path(tmp))

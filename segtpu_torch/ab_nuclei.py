@@ -1,15 +1,18 @@
 """Accuracy A/B of the port against the committed nuclei bands (counterpart
 of segtpu's tools/ab_nuclei.py).
 
-    python -m segtpu_torch.ab_nuclei --work <dir> [--out results/ab_nuclei_port] [--no-tf32]
+    python -m segtpu_torch.ab_nuclei --work <dir> [--out results/ab_nuclei_port]
+                                     [--reference results/ab_nuclei]
 
 Writes the seeded nuclei fixture (48 images, seed 20260819) in the DSB2018
 layout, trains the port's train CLI on it in process, one leg per run seed
 (20260819-21) and config, with segtpu's A/B flags: ``zf_unet`` + ``bce`` +
 SGD lr 1e-3 and ``linknet34`` + ``bce_jaccard`` + Adam lr 1e-4, patch 128,
-batch 8, 10 epochs, fp32. Then it holds each config's 3-seed band of
+batch 8, 10 epochs, on the card at the reference's precision: fp32 with
+TF32 off in cuDNN and matmuls, and cuDNN's deterministic algorithms, as the
+reference's CPU legs ran. Then it holds each config's 3-seed band of
 validation IoU against the torch reference's committed band
-(``results/ab_nuclei/torch_<model>_s<S>.csv``; segtpu's beside it) with the
+(``<reference>/torch_<model>_s<S>.csv``; segtpu's beside it) with the
 rule of ``results/ab_nuclei/comparison.md``: at every epoch of the second
 half the port's band intersects the torch band or lies above it. A band
 disjoint below is the failure, and the exit code is 1.
@@ -30,6 +33,7 @@ import csv
 import os
 import shutil
 import sys
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Callable, Dict, List, Sequence
 
@@ -46,6 +50,7 @@ RUN_SEEDS = (20260819, 20260820, 20260821)
 PATCH, BATCH, EPOCHS = 128, 8, 10
 # (model, loss, optimizer, lr): segtpu's A/B configs (tools/ab_nuclei.py:41-45)
 CONFIGS = (("zf_unet", "bce", "sgd", "1e-3"), ("linknet34", "bce_jaccard", "adam", "1e-4"))
+# the committed bands in a checkout of the repository
 REFERENCE_DIR = Path(__file__).resolve().parent.parent / "results" / "ab_nuclei"
 
 
@@ -75,12 +80,27 @@ def write_init(model: str, seed: int, path) -> None:
 
 
 def leg_argv(model: str, loss: str, optimizer: str, lr: str, data_dir, init, seed: int,
-             experiments_dir, device=None) -> List[str]:
-    argv = ["-m", model, "-d", "dsb2018", "-dd", str(data_dir), "-p", str(PATCH),
+             experiments_dir) -> List[str]:
+    return ["-m", model, "-d", "dsb2018", "-dd", str(data_dir), "-p", str(PATCH),
             "-b", str(BATCH), "-l", loss, "-o", optimizer, "-lr", lr, "-e", str(EPOCHS),
             "--seed", str(seed), "--no-tensorboard", "--light-logging",
             "--init-torch", str(init), "--experiments-dir", str(experiments_dir)]
-    return argv + (["--device", device] if device else [])
+
+
+@contextmanager
+def reference_precision():
+    """The legs' numerics: fp32 convolutions and matmuls without TF32, and
+    cuDNN's deterministic algorithms, so that a leg gives the same bits on
+    every run. The flags are restored after."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
 
 
 def read_val_iou(path) -> List[float]:
@@ -130,10 +150,10 @@ def report(verdicts: dict, card: str) -> str:
         "# Nuclei-fixture A/B: the port (segtpu_torch) against the torch reference and segtpu",
         "",
         f"Fixture: {FIXTURE_IMAGES} images (seed {FIXTURE_SEED}), patch {PATCH}, batch {BATCH}, "
-        f"{EPOCHS} epochs, fp32, run seeds {list(RUN_SEEDS)}, the seed-1234 stratified patch "
-        f"split. The port ran on {card}, TF32 in cuDNN convolutions "
-        f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}. The torch and segtpu bands are "
-        "the committed CSVs of results/ab_nuclei/. Each port leg starts from weights drawn in the reference's "
+        f"{EPOCHS} epochs, run seeds {list(RUN_SEEDS)}, the seed-1234 stratified patch split. "
+        f"The port ran on {card} in fp32 (TF32 off in cuDNN and matmuls; cuDNN's deterministic "
+        "algorithms). The torch and segtpu bands are the committed CSVs of "
+        "results/ab_nuclei/. Each port leg starts from weights drawn in the reference's "
         "distribution from its run seed (segtpu_torch/ab_nuclei.py). Parity holds if, at every "
         "epoch of the second half, the port's 3-seed band intersects the torch band or lies "
         "above it; the failure is the port's band disjoint below. Regenerate: `python -m "
@@ -168,11 +188,14 @@ def train_leg(argv: List[str], model: str) -> dict:
     return train_cli.main(argv)
 
 
-def run(work, out=None, device=None, run_leg: Callable = train_leg, card: str = "") -> dict:
-    """The fixture, the legs (``run_leg(argv, model)`` trains one; default
-    the train CLI), then the comparison: ``{model: verdict}``. With ``out``,
-    writes ``comparison.md`` and the port's CSVs ``port_<model>_s<S>.csv``
-    there."""
+def run(work, out=None, run_leg: Callable = train_leg, card: str = "",
+        reference=REFERENCE_DIR) -> dict:
+    """The fixture, the legs (``run_leg(argv, model)`` trains one, under
+    :func:`reference_precision`; default the train CLI), then the comparison
+    with the committed CSVs in ``reference``: ``{model: verdict}``. With
+    ``out``, writes ``comparison.md`` and the port's CSVs
+    ``port_<model>_s<S>.csv`` there."""
+    reference = Path(reference)
     work = Path(work)
     data_dir = work / "data" / "dsb2018"
     write_fixture(str(data_dir), FIXTURE_IMAGES, FIXTURE_SEED)
@@ -183,13 +206,14 @@ def run(work, out=None, device=None, run_leg: Callable = train_leg, card: str = 
             init = work / f"init_{model}_s{seed}.pth"
             write_init(model, seed, init)
             exp_dir = work / f"port_s{seed}" / "experiments"
-            run_leg(leg_argv(model, loss, opt, lr, data_dir, init, seed, exp_dir, device), model)
+            with reference_precision():
+                run_leg(leg_argv(model, loss, opt, lr, data_dir, init, seed, exp_dir), model)
             port[seed] = read_val_iou(csv_path(exp_dir, model, loss))
             if out is not None:
                 os.makedirs(out, exist_ok=True)
                 shutil.copy(csv_path(exp_dir, model, loss), Path(out) / f"port_{model}_s{seed}.csv")
-        ref = {s: read_val_iou(REFERENCE_DIR / f"torch_{model}_s{s}.csv") for s in RUN_SEEDS}
-        seg = {s: read_val_iou(REFERENCE_DIR / f"segtpu_{model}_s{s}.csv") for s in RUN_SEEDS}
+        ref = {s: read_val_iou(reference / f"torch_{model}_s{s}.csv") for s in RUN_SEEDS}
+        seg = {s: read_val_iou(reference / f"segtpu_{model}_s{s}.csv") for s in RUN_SEEDS}
         verdicts[model] = compare(port, ref, seg)
     if out is not None:
         (Path(out) / "comparison.md").write_text(report(verdicts, card))
@@ -202,15 +226,12 @@ def main(argv=None) -> int:
     p.add_argument("--work", required=True, help="Directory for the fixture, inits and legs")
     p.add_argument("--out", default=None,
                    help="Where to write comparison.md and the port's CSVs")
-    p.add_argument("--device", default=None, help="Device of the legs (default cuda)")
-    p.add_argument("--no-tf32", action="store_true",
-                   help="Convolutions and matmuls in full fp32 on the card, without TF32")
+    p.add_argument("--reference", default=str(REFERENCE_DIR),
+                   help="Directory of the committed torch_* and segtpu_* CSVs (default: "
+                        "results/ab_nuclei of this checkout)")
     args = p.parse_args(argv)
-    device = resolve_device(args.device)
-    if args.no_tf32:
-        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    card = torch.cuda.get_device_name(device) if device.type == "cuda" else "the CPU"
-    verdicts = run(args.work, args.out, args.device, card=card)
+    card = torch.cuda.get_device_name(resolve_device(None))
+    verdicts = run(args.work, args.out, card=card, reference=args.reference)
     print(report(verdicts, card))
     return 0 if all(v["ok"] for v in verdicts.values()) else 1
 

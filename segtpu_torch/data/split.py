@@ -20,56 +20,28 @@ import numbers
 import numpy as np
 
 
-def _random_state(seed) -> np.random.RandomState:
-    """scikit-learn's ``check_random_state``."""
-    if seed is None:
-        return np.random.mtrand._rand
-    if isinstance(seed, numbers.Integral):
-        return np.random.RandomState(seed)
-    if isinstance(seed, np.random.RandomState):
-        return seed
-    raise ValueError(f"{seed!r} cannot be used to seed a numpy.random.RandomState instance")
-
-
 def _is_fraction(size) -> bool:
     return isinstance(size, numbers.Real) and not isinstance(size, numbers.Integral)
 
 
-def _split_sizes(n_samples: int, test_size, train_size):
-    """(n_train, n_test): scikit-learn's parameter check of
-    ``train_test_split``, then its ``_validate_shuffle_split`` with the
-    default test fraction 0.25."""
-    for name, size in (("test_size", test_size), ("train_size", train_size)):
-        if not (size is None or (_is_fraction(size) and 0 < size < 1)
-                or (isinstance(size, numbers.Integral) and size >= 1)):
-            raise ValueError(f"The {name!r} parameter of train_test_split must be a float in "
-                             "the range (0.0, 1.0), an int in the range [1, inf) or None. Got "
-                             f"{size!r} instead.")
-    if test_size is None and train_size is None:
-        test_size = 0.25
-    for name, size in (("test_size", test_size), ("train_size", train_size)):
-        if isinstance(size, numbers.Integral) and size >= n_samples:
-            raise ValueError(f"{name}={size} should be either positive and smaller than the "
-                             f"number of samples {n_samples} or a float in the (0, 1) range")
-    if _is_fraction(test_size) and _is_fraction(train_size) and train_size + test_size > 1:
-        raise ValueError(f"The sum of test_size and train_size = {train_size + test_size}, "
-                         "should be in the (0, 1) range. Reduce test_size and/or train_size.")
+def _split_sizes(n_samples: int, test_size):
+    """(n_train, n_test): scikit-learn's parameter check of ``test_size``,
+    then its ``_validate_shuffle_split`` with no ``train_size``."""
+    if not ((_is_fraction(test_size) and 0 < test_size < 1)
+            or (isinstance(test_size, numbers.Integral) and test_size >= 1)):
+        raise ValueError("The 'test_size' parameter of train_test_split must be a float in the "
+                         "range (0.0, 1.0), an int in the range [1, inf) or None. Got "
+                         f"{test_size!r} instead.")
+    if isinstance(test_size, numbers.Integral) and test_size >= n_samples:
+        raise ValueError(f"test_size={test_size} should be either positive and smaller than the "
+                         f"number of samples {n_samples} or a float in the (0, 1) range")
     n_test = math.ceil(test_size * n_samples) if _is_fraction(test_size) else test_size
-    n_train = math.floor(train_size * n_samples) if _is_fraction(train_size) else train_size
-    if train_size is None:
-        n_train = n_samples - n_test
-    elif test_size is None:
-        n_test = n_samples - n_train
-    if n_train + n_test > n_samples:
-        raise ValueError(f"The sum of train_size and test_size = {n_train + n_test}, should be "
-                         f"smaller than the number of samples {n_samples}. Reduce test_size "
-                         "and/or train_size.")
-    n_train, n_test = int(n_train), int(n_test)
+    n_train = n_samples - n_test
     if n_train == 0:
         raise ValueError(f"With n_samples={n_samples}, test_size={test_size} and "
-                         f"train_size={train_size}, the resulting train set will be empty. "
-                         "Adjust any of the aforementioned parameters.")
-    return n_train, n_test
+                         "train_size=None, the resulting train set will be empty. Adjust any "
+                         "of the aforementioned parameters.")
+    return int(n_train), int(n_test)
 
 
 def _approximate_mode(class_counts: np.ndarray, n_draws: int, rng) -> np.ndarray:
@@ -128,14 +100,14 @@ def _take(a, indices):
     return [a[i] for i in indices]
 
 
-def train_test_split(*arrays, test_size=None, train_size=None, random_state=None,
-                     stratify=None):
+def train_test_split(*arrays, test_size, random_state: int, stratify=None):
     """Split each of ``arrays`` (lists or arrays of one length) into train and
     test parts: ``[a_train, a_test, b_train, b_test, ...]``, as
     ``sklearn.model_selection.train_test_split`` with ``shuffle=True``.
 
-    ``test_size``/``train_size``: a fraction in (0, 1) or a count;
-    ``stratify``: class labels that the split keeps in proportion."""
+    ``test_size``: a fraction in (0, 1) or a count; ``random_state``: the
+    seed of the one ``np.random.RandomState``; ``stratify``: class labels
+    that the split keeps in proportion."""
     if not arrays:
         raise ValueError("At least one array required as input")
     lengths = {len(a) for a in arrays}
@@ -143,11 +115,11 @@ def train_test_split(*arrays, test_size=None, train_size=None, random_state=None
         raise ValueError("Found input variables with inconsistent numbers of samples: "
                          f"{[len(a) for a in arrays]}")
     n_samples = len(arrays[0])
-    n_train, n_test = _split_sizes(n_samples, test_size, train_size)
-    rng = _random_state(random_state)
+    n_train, n_test = _split_sizes(n_samples, test_size)
+    rng = np.random.RandomState(random_state)
     if stratify is None:
         permutation = rng.permutation(n_samples)
-        test, train = permutation[:n_test], permutation[n_test:n_test + n_train]
+        test, train = permutation[:n_test], permutation[n_test:]
     else:
         if len(stratify) != n_samples:
             raise ValueError("Found input variables with inconsistent numbers of samples: "

@@ -15,6 +15,7 @@ import inspect
 import os
 import random
 import re
+import shutil
 from pathlib import Path
 
 import cv2
@@ -114,8 +115,8 @@ def test_stratified_split_matches_sklearn(labels, test_size, random_state):
     dict(n=10, test_size=1.5, stratify=None),                  # not in (0, 1)
     dict(n=10, test_size=10, stratify=None),                   # not below n
     dict(n=10, test_size="a", stratify=None),
-    dict(n=10, test_size=0.5, train_size=0.7, stratify=None),  # fractions over 1
-    dict(n=10, test_size=4, train_size=7, stratify=None),      # counts over n
+    dict(n=10, test_size=0.95, stratify=None),                 # an empty train set
+    dict(n=10, test_size=0, stratify=None),                    # a count below 1
 ])
 def test_split_raises_as_sklearn(case):
     kw = dict(case, random_state=1234)
@@ -487,11 +488,16 @@ def test_ab_band_rule_on_hand_made_csvs(tmp_path, case, relation, ok):
 def test_ab_run_writes_the_comparison(tmp_path, monkeypatch):
     """``run`` end to end with legs that write hand-made CSVs in place of
     training: the fixture, one leg per config and seed with segtpu's flags,
-    the port's CSVs and comparison.md; the committed reference CSVs."""
-    legs = []
+    under TF32 off and deterministic cuDNN (restored after), the port's CSVs
+    and comparison.md; the reference CSVs from ``reference``."""
+    legs, flags = [], set()
+    before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.deterministic)
 
     def fake_leg(argv, model):
         legs.append(argv)
+        flags.add((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+                   torch.backends.cudnn.deterministic))
         loss = argv[argv.index("-l") + 1]
         seed = int(argv[argv.index("--seed") + 1])
         base = 0.0 if model == "zf_unet" else 0.6
@@ -502,8 +508,14 @@ def test_ab_run_writes_the_comparison(tmp_path, monkeypatch):
     monkeypatch.setattr(ab_nuclei, "write_init", lambda model, seed, path: None)
     monkeypatch.setattr(ab_nuclei, "FIXTURE_IMAGES", 2)
     out = tmp_path / "out"
-    verdicts = ab_nuclei.run(tmp_path / "work", out, run_leg=fake_leg, card="test card")
+    reference = tmp_path / "reference"
+    shutil.copytree(ab_nuclei.REFERENCE_DIR, reference)
+    verdicts = ab_nuclei.run(tmp_path / "work", out, run_leg=fake_leg, card="test card",
+                             reference=reference)
     assert len(legs) == 6 and all("--device" not in a for a in legs)
+    assert flags == {(False, False, True)}
+    assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic) == before
     flags = legs[0][:legs[0].index("--seed")]
     assert flags == ["-m", "zf_unet", "-d", "dsb2018", "-dd",
                      str(tmp_path / "work" / "data" / "dsb2018"), "-p", "128", "-b", "8", "-l",
