@@ -36,17 +36,26 @@ Phases, one JSON line each; any failure exits non-zero:
                repeat check, and LinkNet34's InPlaceABN shapes of the nuclei
                A/B's fp32 steps in fp32 channels_last
   kernel_b2    the fused BN+activation kernel against its plain PyTorch version
-               (fp32/bf16, channels_last/NCHW, three activations, a ragged
-               tail, the twelve decoder shapes of a LinkNet34 pass at tile
-               batch 64, the BatchNorm and InPlaceABN shapes of every
-               model's step above, and in fp32 channels_last those of the
-               nuclei A/B's steps, none and leaky_relu), with its time, bytes and bound at the
-               largest shape, at each model's largest training shape, and
-               modelled per step as kernel_b1; beside its activation-none
-               form (the BatchNorm affine) one PyTorch call that computes
-               it, F.batch_norm over mean 0, variance 1 (eps 1e-12), held to
+               (fp32/bf16, three activations, the edge cases of its launch
+               plan in channels_last, NCHW, unaligned NCHW and unaligned
+               channels_last: C = 37, C = 12 and 268 (C = 4 mod 8, M not a
+               multiple of the period, a ragged element tail), C = 1024 and
+               a row-major [1499, 37]; the twelve decoder shapes of a
+               LinkNet34 pass at tile batch 64, the BatchNorm and
+               InPlaceABN shapes of every model's step above, and in fp32
+               channels_last those of the nuclei A/B's steps, none and
+               leaky_relu), with its time, bytes and bound at the largest
+               shape, at each model's largest training shape, and modelled
+               per step as kernel_b1; beside its activation-none form (the
+               BatchNorm affine) one PyTorch call that computes it,
+               F.batch_norm over mean 0, variance 1 (eps 1e-12), held to
                B2's bf16 gate and timed at 4x272x512^2, 16x32x512^2 and
-               16x64x256^2 and per step, as torch.var_mean beside B1
+               16x64x256^2 and per step, as torch.var_mean beside B1; fails
+               where B2 is not faster than F.batch_norm at one of those
+               shapes (warm medians of 20) or over a model's modelled
+               activation-none calls per step. Then B2 and F.batch_norm
+               over C = 32, 64, 128, 272, 512, 1024 at a fixed 570 MB of
+               bf16 channels_last input, each with its share of the bound
   model_parity LinkNet34 saved and reloaded through the .pth snapshot format,
                one 2x3x512x512 fp32 eval forward on the card vs the CPU
   serve        tiled inference as the submit CLI runs it (patch 512, batch 64,
@@ -138,8 +147,8 @@ Phases, one JSON line each; any failure exits non-zero:
                and the port's CSVs
   counters     after training, every cached counter buffer of the B1/B3
                reduction holds zeros
-  one_launch   a torch.profiler count: one call of B1 (either form) or B3
-               runs exactly one device kernel, at the step's largest and
+  one_launch   a torch.profiler count: one call of B1 (either form), B2 or
+               B3 runs exactly one device kernel, at the step's largest and
                smallest shapes (a profiler session slows later launches)
   cli_profile  last: the train CLI's --profile-dir trace of one shapes-device
                epoch of 8 steps; the device's idle share over it (the union
@@ -414,14 +423,19 @@ def timing_entry(nbytes: int, ops: int, card: str, **times) -> dict:
 
 
 def in_layout(x, layout):
-    """``x`` as channels_last, nchw (contiguous; a 2-D tensor is [M, C]) or
+    """``x`` as channels_last, nchw (contiguous; a 2-D tensor is [M, C]),
     unaligned (contiguous, one element off a 16-byte boundary, so the
-    kernels take their scalar path)."""
+    kernels take their scalar path) or unaligned_channels_last (the same in
+    channels_last)."""
     if layout == "channels_last":
         return x.contiguous(memory_format=torch.channels_last)
     if layout == "unaligned":
         buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
         return buf[1:].view(x.shape).copy_(x)
+    if layout == "unaligned_channels_last":
+        n, c, h, w = x.shape
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        return buf[1:].view(n, h, w, c).permute(0, 3, 1, 2).copy_(x)
     return x
 
 
@@ -810,8 +824,19 @@ def phase_kernel_b3(card: str, norm_shapes, fp32_shapes):
 
 
 # The shapes at which kernel_b2 times F.batch_norm beside B2's BatchNorm
-# affine: tiramisu67's largest, ZF_UNET's largest and the 16x64x256^2 call.
+# affine, and fails where B2 is the slower: tiramisu67's largest, ZF_UNET's
+# largest and the 16x64x256^2 call.
 BATCH_NORM_SHAPES = ((4, 272, 512, 512), (16, 32, 512, 512), (16, 64, 256, 256))
+# The edge cases of B2's launch plan (kernels.norm_act_plan), each in fp32
+# and bf16, every layout, three activations: C = 37; C = 4 mod 8 (a period
+# of 2C in bf16), M not a multiple of the period's rows and a ragged element
+# tail (12 and 268 channels); C = 1024; a row-major [M, C] view with both.
+B2_EDGE_SHAPES = ((3, 37, 19, 23), (5, 12, 7, 9), (3, 268, 5, 7), (7, 1024, 3, 5), (1499, 37))
+B2_EDGE_LAYOUTS = ("channels_last", "nchw", "unaligned", "unaligned_channels_last")
+# kernel_b2's sweep over C at fixed bytes: bf16 channels_last, 285,212,672
+# elements (570 MB) each, activation none.
+C_SWEEP_SHAPES = ((34, 32, 512, 512), (17, 64, 512, 512), (34, 128, 256, 256),
+                  (4, 272, 512, 512), (34, 512, 128, 128), (17, 1024, 128, 128))
 
 
 def batch_norm_affine(x, scale, shift):
@@ -839,10 +864,11 @@ def phase_kernel_b2(card: str, norm_shapes, fp32_shapes):
         return x, scale, shift
 
     n_cases, max_err = 0, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    edge = [(s, lay) for s in B2_EDGE_SHAPES
+            for lay in (B2_EDGE_LAYOUTS if len(s) == 4 else ("nchw", "unaligned"))]
     for dtype in (torch.float32, torch.bfloat16):
         for act in ("leaky_relu", "elu", "none"):
-            for shape, layout in (((3, 37, 19, 23), "channels_last"), ((3, 37, 19, 23), "nchw"),
-                                  ((1500, 48), "nchw"), ((2, 24, 17, 9), "unaligned")):
+            for shape, layout in [((1500, 48), "nchw"), ((2, 24, 17, 9), "unaligned")] + edge:
                 err = _check(*inputs(shape, dtype, layout), act, tol[dtype])
                 max_err[dtype] = max(max_err[dtype], err)
                 n_cases += 1
@@ -900,6 +926,25 @@ def phase_kernel_b2(card: str, norm_shapes, fp32_shapes):
         row["kernel_over_library"] = row["ms"] / row["library_ms"]
         library["x".join(map(str, shape))] = row
         del x, got, want, err
+    slower = {k: r["kernel_over_library"] for k, r in library.items() if r["ms"] >= r["library_ms"]}
+    if slower:
+        raise AssertionError(f"kernel_b2: B2 is not faster than F.batch_norm at {slower}")
+
+    # B2 over C at fixed bytes, beside F.batch_norm
+    c_sweep = []
+    for shape in C_SWEEP_SHAPES:
+        x, scale, shift = inputs(shape, torch.bfloat16, "channels_last")
+        err = _check(x, scale, shift, "none", tol[torch.bfloat16])
+        max_err[torch.bfloat16] = max(max_err[torch.bfloat16], err)
+        n_cases += 1
+        row = dict(shape=list(shape), **timing_entry(
+            2 * x.numel() * 2 + 2 * 4 * shape[1], 3 * x.numel(), card,
+            ms=cuda_ms(lambda: kernels.abn_norm_act_cuda(x, scale, shift, "none", SLOPE)),
+            library_ms=cuda_ms(batch_norm_affine(x, scale, shift))))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        c_sweep.append(row)
+        del x
+    torch.cuda.empty_cache()
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     timed = time_shapes(
@@ -912,10 +957,16 @@ def phase_kernel_b2(card: str, norm_shapes, fp32_shapes):
     per_step, per_step_shapes = {}, {}
     for model, model_calls in calls.items():
         per_step[model], per_step_shapes[model] = step_sum(timed, model_calls)
-        if per_step[model]["calls_modelled"] != MODEL_STEP_LAUNCHES[model]["abn_norm_act"]:
-            raise AssertionError(f"kernel_b2: {per_step[model]['calls_modelled']} calls per "
+        sums = per_step[model]
+        if sums["calls_modelled"] != MODEL_STEP_LAUNCHES[model]["abn_norm_act"]:
+            raise AssertionError(f"kernel_b2: {sums['calls_modelled']} calls per "
                                  f"{model} step, expected "
                                  f"{MODEL_STEP_LAUNCHES[model]['abn_norm_act']}")
+        if (sums["library_ms_modelled_cold"] is not None
+                and sums["ms_modelled_cold_of_library_calls"] >= sums["library_ms_modelled_cold"]):
+            raise AssertionError(f"kernel_b2: over {model}'s activation-none calls per step B2 "
+                                 f"takes {sums['ms_modelled_cold_of_library_calls']} ms, "
+                                 f"F.batch_norm {sums['library_ms_modelled_cold']}")
     emit("kernel_b2", cases=n_cases, max_abs_err_fp32=max_err[torch.float32],
          max_abs_err_bf16=max_err[torch.bfloat16], tolerance={"fp32": "atol 1e-6",
                                                                "bf16": "rtol 8e-3 (one bf16 ulp)"},
@@ -924,7 +975,8 @@ def phase_kernel_b2(card: str, norm_shapes, fp32_shapes):
          training_shapes=len(train_cases), fp32_training_cases=len(fp32_cases), per_step=per_step, per_step_shapes=per_step_shapes,
          batch_norm_affine=dict(call="F.batch_norm(x, 0, 1, scale, shift, training=False, "
                                      "eps=1e-12)", tolerance="rtol 8e-3 (one bf16 ulp)",
-                                by_shape=library),
+                                by_shape=library, b2_faster_everywhere=True),
+         c_sweep=c_sweep,
          per_forward=dict(launches=len(shapes), ms=sum(t["ms"] for t in per_shape),
                           plain_ms=sum(t["plain_ms"] for t in per_shape),
                           bound_ms=sum(t["bound_ms"] for t in per_shape),
@@ -932,7 +984,7 @@ def phase_kernel_b2(card: str, norm_shapes, fp32_shapes):
          per_shape=per_shape)
     return (dict(largest, largest_training=largest_training,
                  largest_training_by_model=largest_training_by_model, per_step=per_step,
-                 batch_norm_affine=library),
+                 batch_norm_affine=library, c_sweep=c_sweep),
             max(max_err.values()))
 
 
@@ -1797,8 +1849,9 @@ def phase_cli_profile(tmpdir: Path):
 
 
 def phase_one_launch(norm_shapes):
-    """One call of B1 (both forms) and of B3 runs exactly one device kernel,
-    at the largest and the smallest shape of the step, by torch.profiler.
+    """One call of B1 (both forms), of B2 and of B3 runs exactly one device
+    kernel, at the largest and the smallest shape of the step, by
+    torch.profiler.
     Last of the phases that use the card: a profiler session leaves CUPTI
     attached to the process, which slows every later launch."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 50)
@@ -1815,7 +1868,13 @@ def phase_one_launch(norm_shapes):
         fns[f"abn_bwd {label}"] = (lambda z=z, grad=grad, gamma=gamma, beta=beta:
                                    kernels.abn_bwd_sums_cuda(z, grad, gamma, beta, "leaky_relu",
                                                              SLOPE))
-    names = check_one_launch("reduction", fns)
+    for label, shape in (("smallest", unique[0]), ("largest", unique[-1])):
+        x = cuda_input(shape, torch.bfloat16, "channels_last", g)
+        scale = torch.rand(shape[1], device="cuda", generator=g) + 0.5
+        shift = torch.randn(shape[1], device="cuda", generator=g)
+        fns[f"abn_norm_act {label}"] = (lambda x=x, scale=scale, shift=shift:
+                                        kernels.abn_norm_act_cuda(x, scale, shift, "none", SLOPE))
+    names = check_one_launch("kernel", fns)
     emit("one_launch", device_kernels_per_call={k: 1 for k in names}, kernels=names, ok=True)
 
 
@@ -1904,7 +1963,7 @@ def main(argv=None) -> int:
                      sum(by_path["abn_norm_act"].values()), b2_err, dict(b2, library_ms=None),
                      largest_training=b2["largest_training"],
                      largest_training_by_model=b2["largest_training_by_model"],
-                     batch_norm_affine=b2["batch_norm_affine"],
+                     batch_norm_affine=b2["batch_norm_affine"], c_sweep=b2["c_sweep"],
                      per_step=_per_step_entry(b2["per_step"]),
                      launches_by_path=by_path["abn_norm_act"]),
         kernel_entry("B3", "abn_bwd", "segtpu/ops/bn_alt.py:216", sum(by_path["abn_bwd"].values()),

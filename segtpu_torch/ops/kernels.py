@@ -17,16 +17,19 @@ launched, so a run can show that its main path went through the kernel.
 
 Kernels: B1 ``channel_sums`` (per-channel fp32 (sum a, sum a*b)), B2
 ``abn_norm_act`` (per-channel affine + activation) and B3 ``abn_bwd``
-(from-output ABN backward sums). B1 and B3 share the one-launch reduction of
-``csrc/channel_reduce.cuh``. Its launch plan is computed here
-(:func:`reduce_plan`, cached per shape, dtype, layout, alignment and SM
-count) and checked by the launcher; the SM count is read once per device,
-and the int32 counters of the reduction's second level are allocated zeroed
-once per (device, stream) and left at zero by every launch. The scratch of
-that level, ``[2, clusters, C]`` sums (fp64 for fp32 inputs, fp32 for bf16),
-is sized from the plan and allocated only when a channel tile spans more
-than one cluster. The plain PyTorch
-versions, and the per-device dispatch, are in :mod:`segtpu_torch.ops.abn`.
+(from-output ABN backward sums). Each takes a launch plan computed here and
+passed to its C launcher as a packed int64 array, which the launcher checks
+and refuses with ``cudaErrorInvalidValue``; the wrapper raises on any
+non-zero return. B2's plan (:func:`norm_act_plan`) and B1/B3's
+(:func:`reduce_plan`) are each cached per shape, dtype, layout, alignment
+and SM count, so a call repeats no host arithmetic; the SM count is read
+once per device. B1 and B3 share the one-launch reduction of
+``csrc/channel_reduce.cuh``: the int32 counters of its second level are
+allocated zeroed once per (device, stream) and left at zero by every launch,
+and the scratch of that level, ``[2, clusters, C]`` sums (fp64 for fp32
+inputs, fp32 for bf16), is sized from the plan and allocated only when a
+channel tile spans more than one cluster. The plain PyTorch versions, and
+the per-device dispatch, are in :mod:`segtpu_torch.ops.abn`.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import math
 import os
 import subprocess
 from pathlib import Path
@@ -48,12 +52,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = {"channel_sums": "channel_sums.cu", "abn_norm_act": "abn_norm_act.cu",
            "abn_bwd": "abn_bwd.cu"}
-_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-# argtypes of each ``<name>_launch``: every pointer and the stream c_void_p,
-# every size c_longlong.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argtypes of each ``<name>_launch``: every pointer, the packed plan and the
+# stream c_void_p.
 _ARGTYPES = {
     "channel_sums": [_P] * 7 + [_I, _P],
-    "abn_norm_act": [_P] * 4 + [_LL] * 3 + [_I, _I, _F, _I, _P],
+    "abn_norm_act": [_P] * 5 + [_I, _I, _F, _P],
     "abn_bwd": [_P] * 9 + [_I, _I, _F, _P],
 }
 
@@ -155,9 +159,116 @@ def _check_channel_vectors(x: torch.Tensor, **vectors: torch.Tensor) -> None:
                              f"{x.device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+class _PackedPlan:
+    """A frozen dataclass of int fields that C launchers read as one int64
+    array, in field order."""
+
+    @functools.cached_property
+    def packed(self):
+        """The fields as the int64 array that the C launchers read."""
+        values = [int(getattr(self, f.name)) for f in dataclasses.fields(self)]
+        return (ctypes.c_longlong * len(values))(*values)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+MAX_GRID = 2**31 - 1      # blocks of a grid's x dimension
+MAX_GRID_Y = 65535        # blocks of its y dimension
+
+# ---------------------------------------------------------------------------
+# B2: the launch plan of csrc/abn_norm_act.cu
+# ---------------------------------------------------------------------------
+
+NORM_ACT_THREADS = 256      # most threads a block has (kMaxThreads)
+NORM_ACT_UNROLL = 4         # loads in flight per thread on the rows path (kUnroll)
+NORM_ACT_BLOCKS_PER_SM = 4  # rows path: a persistent grid, kMinBlocks blocks an SM
+PLANES_BLOCKS_PER_SM = 8    # planes path: one load in flight, 2048 threads an SM
+
+
+@dataclasses.dataclass(frozen=True)
+class NormActPlan(_PackedPlan):
+    """How one B2 call is cut into blocks; the fields, in order, are those of
+    the C struct ``Plan`` of ``csrc/abn_norm_act.cu``.
+
+    ``rows_layout`` (inner == 1): the tensor is read as periods of
+    ``cols`` vectors of ``vec`` elements, ``cols * vec = lcm(C, vec)``, so
+    that column j of every period holds the same channels. A block is ``tx``
+    threads across a tile of columns (``col_tiles`` tiles, the grid's y) by
+    ``ty`` across periods; each of the grid's ``blocks`` takes ``unroll *
+    ty`` consecutive periods per loop trip. Planes (contiguous NCHW): ``tx``
+    threads per block, one vector per thread per trip, ``cols`` 0 and ``ty``,
+    ``col_tiles``, ``unroll`` 1."""
+
+    rows_layout: bool
+    vec: int
+    channels: int
+    inner: int
+    numel: int
+    cols: int
+    tx: int
+    ty: int
+    col_tiles: int
+    unroll: int
+    blocks: int
+
+    @property
+    def threads(self) -> int:
+        return self.tx * self.ty
+
+    @property
+    def periods(self) -> int:
+        """Periods of the rows path, the last one maybe partial; 0 for planes."""
+        return _cdiv(self.numel // self.vec, self.cols) if self.rows_layout else 0
+
+
+@functools.lru_cache(maxsize=4096)
+def norm_act_plan(shape: Tuple[int, ...], dtype: torch.dtype, inner: int, aligned: bool,
+                  sms: int) -> NormActPlan:
+    """The launch plan of one B2 call.
+
+    ``shape``: the input's shape, channel dim 1; ``inner``: the stride
+    between neighbouring channels (:func:`channel_inner`); ``aligned``: the
+    input and the output start on a 16-byte boundary (else ``vec`` is 1);
+    ``sms``: the card's SM count.
+
+    Rows: a tile is all of a period's columns when they fit one block, else
+    the columns shared evenly over the fewest tiles of at most
+    NORM_ACT_THREADS; as many periods across the block as fill
+    NORM_ACT_THREADS; NORM_ACT_BLOCKS_PER_SM blocks per SM over the tiles,
+    fewer when the periods run out in one trip. Planes: blocks of
+    NORM_ACT_THREADS over the vectors, up to PLANES_BLOCKS_PER_SM per SM.
+    These constants were chosen by measurement on an H100 (PERF.md §6)."""
+    shape = tuple(int(s) for s in shape)
+    if dtype not in _DTYPES:
+        raise TypeError(f"abn_norm_act takes float32 or bfloat16, got {dtype}")
+    if len(shape) < 2 or shape[1] <= 0 or inner <= 0 or sms <= 0:
+        raise ValueError(f"no abn_norm_act plan for shape {shape} with inner {inner}")
+    channels, numel = shape[1], math.prod(shape)
+    if numel <= 0 or numel % (channels * inner) != 0:
+        raise ValueError(f"no abn_norm_act plan for shape {shape} with inner {inner}")
+    vec = 16 // dtype.itemsize if aligned else 1
+    if inner == 1:
+        cols = math.lcm(channels, vec) // vec
+        col_tiles = _cdiv(cols, NORM_ACT_THREADS)
+        if col_tiles > MAX_GRID_Y:
+            raise ValueError(f"shape {shape}: {channels} channels are too many for one plan")
+        tx = _cdiv(cols, col_tiles)
+        ty = max(1, NORM_ACT_THREADS // tx)
+        periods = _cdiv(numel // vec, cols)
+        blocks = min(_cdiv(NORM_ACT_BLOCKS_PER_SM * sms, col_tiles),
+                     _cdiv(periods, NORM_ACT_UNROLL * ty))
+        return NormActPlan(True, vec, channels, inner, numel, cols, tx, ty, col_tiles,
+                           NORM_ACT_UNROLL, blocks)
+    blocks = min(PLANES_BLOCKS_PER_SM * sms, _cdiv(numel // vec, NORM_ACT_THREADS))
+    return NormActPlan(False, vec, channels, inner, numel, 0, NORM_ACT_THREADS, 1, 1, 1,
+                       blocks)
+
+
 def abn_norm_act_cuda(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                       activation: str, slope: float) -> torch.Tensor:
-    """act(x * scale + shift) per channel (dim 1) with the CUDA kernel.
+    """act(x * scale + shift) per channel (dim 1) with the B2 kernel.
 
     ``x``: fp32 or bf16 on a CUDA device, contiguous NCHW, channels_last or
     [M, C]. ``scale``/``shift``: fp32 [C] on the same device. The output keeps
@@ -169,21 +280,19 @@ def abn_norm_act_cuda(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
         raise TypeError(f"abn_norm_act_cuda takes float32 or bfloat16, got {x.dtype}")
     if activation not in _ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
-    c = x.shape[1] if x.dim() >= 2 else -1
     _check_channel_vectors(x, scale=scale, shift=shift)
     inner = channel_inner(x)
     out = torch.empty_like(x)
-    n = x.numel()
-    if n == 0:
+    if x.numel() == 0:
         return out
-    vectorized = int(x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    plan = norm_act_plan(x.shape, x.dtype, inner, aligned, sm_count(x.device))
     lib = _library("abn_norm_act")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.abn_norm_act_launch(
-            x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
-            n, inner, c, _DTYPES[x.dtype], _ACTIVATIONS[activation], float(slope),
-            vectorized, stream)
+            x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), plan.packed,
+            _DTYPES[x.dtype], _ACTIVATIONS[activation], float(slope), stream)
     if rc != 0:
         raise RuntimeError(f"abn_norm_act kernel launch failed: cudaError {rc}")
     abn_norm_act_cuda.launches += 1
@@ -220,11 +329,10 @@ REDUCE_MAX_WIDTH = 256    # channels per tile that the shared arrays hold (kMaxW
 REDUCE_MAX_CLUSTER = 8    # the portable cluster size (kMaxCluster)
 REDUCE_MAX_LANES = 32     # threads per channel in the second level (kMaxLanes)
 REDUCE_BLOCKS_PER_SM = 2  # grid target, chosen by measurement (PERF.md §6)
-MAX_GRID = 2**31 - 1      # blocks of a one-dimensional grid
 
 
 @dataclasses.dataclass(frozen=True)
-class ReducePlan:
+class ReducePlan(_PackedPlan):
     """How one B1/B3 call is cut into blocks; the fields, in order, are those
     of the C struct ``chred::Plan``.
 
@@ -271,16 +379,6 @@ class ReducePlan:
         """int32 counters the second level needs (one per tile); 0 with one
         cluster per tile."""
         return self.tiles if self.clusters > 1 else 0
-
-    @functools.cached_property
-    def packed(self):
-        """The fields as the int64 array that the C launchers read."""
-        values = [int(getattr(self, f.name)) for f in dataclasses.fields(self)]
-        return (ctypes.c_longlong * len(values))(*values)
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 @functools.lru_cache(maxsize=4096)
