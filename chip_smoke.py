@@ -25,7 +25,13 @@ Phases, one JSON line each; any failure exits non-zero:
                bits at the largest and the smallest step shape; and in fp32
                channels_last, both forms at every BatchNorm and InPlaceABN
                shape of the nuclei A/B's fp32 steps (LinkNet34 and ZF_UNET
-               at batch 8, patch 128), checked, not timed. Times are
+               at batch 8, patch 128) and of the zoo's parity steps (2 x 3
+               x 64^2), checked, not timed. The model zoo's steps (ZOO_BATCH:
+               batch 16, or 8 over ResNet-101/152, patch 512): every
+               BatchNorm shape checked in both forms, each model's largest
+               timed beside torch.var_mean, and psp_net's and duc's calls
+               modelled per step (PSPNet's pyramid at 8 to 288 rows among
+               them). Times are
                device times (segtpu_torch.profile_reduce.cuda_ms: a spin
                kernel keeps the device busy while the host launches)
   kernel_b3    the from-output ABN backward kernel against its plain version
@@ -55,7 +61,11 @@ Phases, one JSON line each; any failure exits non-zero:
                shapes (warm medians of 20) or over a model's modelled
                activation-none calls per step. Then B2 and F.batch_norm
                over C = 32, 64, 128, 272, 512, 1024 at a fixed 570 MB of
-               bf16 channels_last input, each with its share of the bound
+               bf16 channels_last input, each with its share of the bound.
+               The zoo's BatchNorm shapes as in kernel_b1, in bf16 and at
+               the parity steps in fp32; each zoo model's largest and
+               psp_net's and duc's per-step calls timed beside
+               F.batch_norm, reported and not gated
   model_parity LinkNet34 saved and reloaded through the .pth snapshot format,
                one 2x3x512x512 fp32 eval forward on the card vs the CPU
   serve        tiled inference as the submit CLI runs it (patch 512, batch 64,
@@ -106,6 +116,32 @@ Phases, one JSON line each; any failure exits non-zero:
   train_unet11    the bench config unet11-finetune-512 in normal space (VGG
                stages frozen): 3 warm and 5 timed steps, no kernel of this
                repo (0, 0, 0); then 2 UNet16 steps
+  zoo_parity   the model zoo at full width (dilated_linknet34, gcn34, linknext,
+               squeezenet, gcn, psp_net, duc, duc_dc): per model one fp32
+               eval forward on the card (TF32 off) at 1x3x128^2 (1x3x64^2
+               over ResNet-101/152), calibrated on the CPU, against the CPU
+               in fp32 and float64; one fp32 SGD bce step on 2x3x64x64
+               SHAPES (dropout off) on the card, the CPU in NCHW and in
+               channels_last, and the CPU in float64. The card is held to
+               float64 by train_parity's gates, or by 4x the CPU fp32 runs'
+               own distance from float64 where that is larger (the deep
+               steps are ill-conditioned at this size); launches per step
+               as the layer count (B3 0 in all eight); PSPNet's head
+               BatchNorms at momentum 0.95
+  train_zoo    each zoo model at patch 512, bf16 autocast, bce, SGD lr 1e-3
+               on one fixed DeviceShapes batch (16, or 8 over ResNet-101/
+               152): 3 warm and 5 timed steps; images/s, ms/step, peak
+               memory, losses (finite; whether the last is below the first
+               is reported, not gated), launches per step as the layer
+               count, no copy of a BatchNorm input; the dtype of the
+               bilinear upsampling under autocast, and gcn's and psp_net's
+               steps with it kept in bf16
+  train_cli_psp_net  the train CLI's -m psp_net -d shapes-device -s 2 -e 1
+               --bf16 at batch 8: launches 2 x (218, 109, 0), the two .pth
+  serve_zoo    the submit CLI's path (predict_tiled_stream) with
+               DilatedLinkNet34 over one seeded 5000x5000 image (patch 512,
+               tile batch 64, D4 TTA, bf16): s/image, a 0/255 mask, no
+               kernel of this repo (eval-mode BatchNorm is F.batch_norm)
   train_cli    the train CLI in process, in a temporary directory, three runs:
                (a) -d shapes-device -b 16 -p 512 --bf16 -o adam -e 2 (64 train
                steps and 8 validation batches an epoch), (b) -e 3 -r on the
@@ -156,7 +192,8 @@ Phases, one JSON line each; any failure exits non-zero:
 
 The kernel counts are set to 0 just before each main path (serve, train,
 train_zf_unet, train_unet_abn, train_tiramisu67, train_albunet,
-train_unet11, each train_cli run, train_ab_cli, train_cli_albunet, each
+train_unet11, each train_zoo model's timed steps, train_cli_psp_net,
+serve_zoo, each train_cli run, train_ab_cli, train_cli_albunet, each
 train_nuclei leg) and read
 just after it. Then the kernel table line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from a seed,
@@ -167,6 +204,7 @@ layer sees activations of order one.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import re
@@ -191,6 +229,7 @@ from segtpu_torch.data.pipeline import DataLoader, Subset
 from segtpu_torch.data.shapes import DeviceShapes, ShapesDataset, to_nchw
 from segtpu_torch.inference import predict_tiled, predict_tiled_stream
 from segtpu_torch.models import ENCODER_PREFIXES, get_model, without_encoder
+from segtpu_torch.models import layers as layers_mod
 from segtpu_torch.models.layers import BatchNormTorch, InPlaceABN, upsample_nearest
 from segtpu_torch.ops import abn as abn_ops
 from segtpu_torch.ops import kernels
@@ -226,12 +265,27 @@ STEP_LAUNCHES = MODEL_STEP_LAUNCHES["linknet34"]
 # BatchNorm is F.batch_norm over the running statistics and runs no kernel of
 # this repo, and nothing is reduced.
 EVAL_LAUNCHES = {"channel_sums": 0, "abn_norm_act": 12, "abn_bwd": 0}
+NO_LAUNCHES = {"channel_sums": 0, "abn_norm_act": 0, "abn_bwd": 0}
 # The models whose training-step shapes the kernel phases check and time, at
 # the batch of their step. tiramisu57 grows by 12 channels, so most of its
 # B1 calls take the kernel's scalar loads (vec 1).
 KERNEL_MODELS = {"linknet34": TRAIN_BATCH, "zf_unet": TRAIN_BATCH, "unet_abn": TRAIN_BATCH,
                  "tiramisu67": TIRAMISU_BATCH, "tiramisu57": TIRAMISU_BATCH,
                  "albunet": TRAIN_BATCH}
+# The model zoo: each model's training batch at patch 512 (8 over
+# ResNet-101/152), and the side of its fp32 eval parity forward (64 over
+# ResNet-101/152, else 128). The kernel phases check every BatchNorm shape
+# of each zoo step, time each model's largest, and model B1's and B2's time
+# per step of ZOO_PER_STEP as of KERNEL_MODELS.
+ZOO_BATCH = {"dilated_linknet34": 16, "gcn34": 16, "linknext": 16, "squeezenet": 16,
+             "gcn": 8, "psp_net": 8, "duc": 8, "duc_dc": 8}
+ZOO_SIDE = {m: 64 if b == 8 else 128 for m, b in ZOO_BATCH.items()}
+ZOO_STEPS = 5
+ZOO_PER_STEP = ("psp_net", "duc")
+# Zoo models with a bilinear upsampling in their head, by the module that
+# calls it: their step is also timed with it kept in bf16 (autocast runs it
+# in fp32, as segtpu does).
+ZOO_BILINEAR = {"gcn": "segtpu_torch.models.gcn", "psp_net": "segtpu_torch.models.psp"}
 CLI_ARGS = ["-m", "linknet34", "-l", "bce_jaccard", "-o", "adam", "-lr", "1e-3", "-b", str(TRAIN_BATCH),
             "-p", str(PATCH), "--bf16", "--no-tensorboard", "--seed", "0"]
 # Host waits for the card allowed in a train epoch: the loop's one log fetch
@@ -244,8 +298,10 @@ CLI_STEPS, CLI_VAL_BATCHES = 1024 // TRAIN_BATCH, 128 // TRAIN_BATCH
 # The main paths, and those that run each kernel. train_unet11 runs none:
 # TernausNet has no normalisation layer.
 PATHS = ("serve", "train", "train_zf_unet", "train_unet_abn", "train_tiramisu67", "train_albunet",
-         "train_unet11", "train_cli", "train_ab_cli", "train_cli_albunet", "train_nuclei")
-BN_PATHS = ("train_zf_unet", "train_tiramisu67", "train_albunet", "train_cli_albunet")
+         "train_unet11", "train_zoo", "train_cli_psp_net", "serve_zoo", "train_cli",
+         "train_ab_cli", "train_cli_albunet", "train_nuclei")
+BN_PATHS = ("train_zf_unet", "train_tiramisu67", "train_albunet", "train_zoo",
+            "train_cli_psp_net", "train_cli_albunet")
 ABN_PATHS = ("train", "train_unet_abn", "train_cli", "train_ab_cli", "train_nuclei")
 KERNEL_PATHS = {
     "channel_sums": ABN_PATHS + BN_PATHS,
@@ -600,11 +656,13 @@ def by_model_largest(norm_shapes, kinds, timing):
     return out
 
 
-def phase_kernel_b1(card: str, norm_shapes, fp32_shapes):
+def phase_kernel_b1(card: str, norm_shapes, fp32_shapes, zoo_shapes):
     """B1 against its plain version, then its time at the largest shapes of
     the training steps. ``norm_shapes``: model -> :func:`step_norm_shapes`
     of the bf16 steps; ``fp32_shapes``: the same of the fp32 steps (the
-    nuclei A/B), checked in fp32 channels_last, not timed."""
+    nuclei A/B, the zoo's parity steps), checked in fp32 channels_last, not
+    timed; ``zoo_shapes``: the zoo's bf16 steps, each checked, each model's
+    largest timed, and ZOO_PER_STEP's steps modelled as ``norm_shapes``'."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     n_cases, max_err, max_rel = 0, 0.0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -618,7 +676,8 @@ def phase_kernel_b1(card: str, norm_shapes, fp32_shapes):
                 err, rel = _b1_case(a, b)
                 max_err, max_rel, n_cases = max(max_err, err), max(max_rel, rel), n_cases + 1
     unique = _unique(norm_shapes, ("bn", "abn"))
-    for shape in unique:
+    zoo_unique = sorted(set(_unique(zoo_shapes, ("bn",))) - set(unique))
+    for shape in unique + zoo_unique:
         for pair in (False, True):
             a = cuda_input(shape, torch.bfloat16, "channels_last", g)
             b = cuda_input(shape, torch.bfloat16, "channels_last", g, 0.0, 1.0) if pair else None
@@ -650,6 +709,7 @@ def phase_kernel_b1(card: str, norm_shapes, fp32_shapes):
 
     big, small = _largest(unique), min(unique, key=lambda s: int(np.prod(s)))
     largest_by_model = by_model_largest(norm_shapes, ("bn", "abn"), largest_timing)
+    zoo_largest_by_model = by_model_largest(zoo_shapes, ("bn",), largest_timing)
     largest = largest_by_model[_model_of(norm_shapes, ("bn", "abn"), big)]
     a = cuda_input(big, torch.bfloat16, "channels_last", g)
     b = cuda_input(big, torch.bfloat16, "channels_last", g, 0.0, 1.0)
@@ -663,7 +723,8 @@ def phase_kernel_b1(card: str, norm_shapes, fp32_shapes):
     del a, b, sa, sb
 
     calls = {}
-    for model, shapes in norm_shapes.items():
+    modelled = dict(norm_shapes, **{m: zoo_shapes[m] for m in ZOO_PER_STEP})
+    for model, shapes in modelled.items():
         calls[model] = Counter()
         for shape in shapes["bn"]:
             calls[model][(shape, "single")] += 1  # forward statistics
@@ -706,11 +767,12 @@ def phase_kernel_b1(card: str, norm_shapes, fp32_shapes):
                        ms_modelled_cold=sum(r["calls_per_step"] * r["ms"] for r in scalar),
                        bound_ms_modelled=sum(r["calls_per_step"] * r["bound_ms"] for r in scalar),
                        per_shape=scalar)
-    emit("kernel_b1", cases=n_cases, step_shapes=len(unique), fp32_step_shapes=len(fp32_unique),
-         fp32_step_max_abs_err=fp32_err, max_abs_err=max_err,
+    emit("kernel_b1", cases=n_cases, step_shapes=len(unique), zoo_step_shapes=len(zoo_unique),
+         fp32_step_shapes=len(fp32_unique), fp32_step_max_abs_err=fp32_err, max_abs_err=max_err,
          max_err_over_sum_abs=max_rel,
          tolerance=f"per channel |err| <= {RTOL_SUM} * sum|term| + 1e-6",
-         largest=largest, largest_by_model=largest_by_model, scalar_loads=scalar_path,
+         largest=largest, largest_by_model=largest_by_model,
+         zoo_largest_by_model=zoo_largest_by_model, scalar_loads=scalar_path,
          per_step=per_step, per_shape=per_shape, beats_var_mean_single=beats,
          repeat_bit_identical=repeat,
          timing="device time (a spin kernel ahead of each run); largest: warm medians of "
@@ -719,8 +781,8 @@ def phase_kernel_b1(card: str, norm_shapes, fp32_shapes):
          library="torch.var_mean(x, dim=(0, 2, 3), correction=0) for the single form; "
                  "none for the pair form")
     return dict(largest["single"], shape=list(big), pair=largest["pair"],
-                largest_by_model=largest_by_model, scalar_loads=scalar_path,
-                per_step=per_step), max_err
+                largest_by_model=largest_by_model, zoo_largest_by_model=zoo_largest_by_model,
+                scalar_loads=scalar_path, per_step=per_step), max_err
 
 
 def _b3_case(z, g, gamma, beta, act):
@@ -850,9 +912,12 @@ def batch_norm_affine(x, scale, shift):
     return lambda: F.batch_norm(x, zeros, ones, scale, shift, training=False, eps=1e-12)
 
 
-def phase_kernel_b2(card: str, norm_shapes, fp32_shapes):
+def phase_kernel_b2(card: str, norm_shapes, fp32_shapes, zoo_shapes):
     """The kernel against its plain version, then its time at the main paths'
-    shapes; the fp32 steps' calls (``fp32_shapes``) checked, not timed."""
+    shapes; the fp32 steps' calls (``fp32_shapes``) checked, not timed; the
+    zoo's (``zoo_shapes``) checked, each model's largest timed beside
+    F.batch_norm, ZOO_PER_STEP's steps modelled, none of them gated on
+    F.batch_norm."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     tol = {torch.float32: (0.0, 1e-6), torch.bfloat16: (8e-3, 0.0)}
 
@@ -874,10 +939,12 @@ def phase_kernel_b2(card: str, norm_shapes, fp32_shapes):
                 n_cases += 1
     shapes = decoder_abn_shapes(BATCH, PATCH)
     # the training steps: the BatchNorm affine (no activation), InPlaceABN (leaky_relu)
+    modelled = dict(norm_shapes, **{m: zoo_shapes[m] for m in ZOO_PER_STEP})
     calls = {m: Counter([(s, "none") for s in sh["bn"]] + [(s, "leaky_relu") for s in sh["abn"]])
-             for m, sh in norm_shapes.items()}
+             for m, sh in modelled.items()}
     train_cases = sorted(set().union(*calls.values()))
-    for shape, act in [(s, "leaky_relu") for s in shapes] + train_cases:
+    zoo_cases = sorted({(s, "none") for s in _unique(zoo_shapes, ("bn",))} - set(train_cases))
+    for shape, act in [(s, "leaky_relu") for s in shapes] + train_cases + zoo_cases:
         err = _check(*inputs(shape, torch.bfloat16, "channels_last"), act, tol[torch.bfloat16])
         max_err[torch.bfloat16] = max(max_err[torch.bfloat16], err)
         n_cases += 1
@@ -908,6 +975,16 @@ def phase_kernel_b2(card: str, norm_shapes, fp32_shapes):
     largest_training_by_model = by_model_largest(norm_shapes, ("bn",), lambda s: timing(s, "none"))
     largest_training = largest_training_by_model[_model_of(
         norm_shapes, ("bn",), _largest([s for m in norm_shapes.values() for s in m["bn"]]))]
+
+    def beside_batch_norm(shape):
+        """B2's activation-none form and F.batch_norm at ``shape``, not gated."""
+        x, scale, shift = inputs(shape, torch.bfloat16, "channels_last")
+        row = timing(shape, "none")
+        row["library_ms"] = cuda_ms(batch_norm_affine(x, scale, shift))
+        row["kernel_over_library"] = row["ms"] / row["library_ms"]
+        return row
+
+    zoo_largest_by_model = by_model_largest(zoo_shapes, ("bn",), beside_batch_norm)
 
     # B2's activation-none form, the BatchNorm affine, in one PyTorch call
     library = {}
@@ -962,17 +1039,27 @@ def phase_kernel_b2(card: str, norm_shapes, fp32_shapes):
             raise AssertionError(f"kernel_b2: {sums['calls_modelled']} calls per "
                                  f"{model} step, expected "
                                  f"{MODEL_STEP_LAUNCHES[model]['abn_norm_act']}")
-        if (sums["library_ms_modelled_cold"] is not None
+        if (model not in ZOO_PER_STEP and sums["library_ms_modelled_cold"] is not None
                 and sums["ms_modelled_cold_of_library_calls"] >= sums["library_ms_modelled_cold"]):
             raise AssertionError(f"kernel_b2: over {model}'s activation-none calls per step B2 "
                                  f"takes {sums['ms_modelled_cold_of_library_calls']} ms, "
                                  f"F.batch_norm {sums['library_ms_modelled_cold']}")
+    zoo_slower = {m: r["kernel_over_library"] for m, r in zoo_largest_by_model.items()
+                  if r["ms"] >= r["library_ms"]}
+    zoo_slower.update({f"{m} {'x'.join(map(str, r['shape']))}": r["ms"] / r["library_ms"]
+                       for m in ZOO_PER_STEP for r in per_step_shapes[m]
+                       if r["library_ms"] is not None and r["ms"] >= r["library_ms"]})
     emit("kernel_b2", cases=n_cases, max_abs_err_fp32=max_err[torch.float32],
          max_abs_err_bf16=max_err[torch.bfloat16], tolerance={"fp32": "atol 1e-6",
                                                                "bf16": "rtol 8e-3 (one bf16 ulp)"},
          rate_source=rate_src, hbm_bytes_per_s=bw, largest=largest,
          largest_training=largest_training, largest_training_by_model=largest_training_by_model,
-         training_shapes=len(train_cases), fp32_training_cases=len(fp32_cases), per_step=per_step, per_step_shapes=per_step_shapes,
+         training_shapes=len(train_cases), zoo_training_shapes=len(zoo_cases),
+         fp32_training_cases=len(fp32_cases), per_step=per_step, per_step_shapes=per_step_shapes,
+         zoo_largest_by_model=zoo_largest_by_model,
+         zoo_not_faster_than_batch_norm=dict(
+             by_shape=zoo_slower, note="reported, not gated: the zoo's largest shapes and "
+                                       "the per-step shapes of " + ", ".join(ZOO_PER_STEP)),
          batch_norm_affine=dict(call="F.batch_norm(x, 0, 1, scale, shift, training=False, "
                                      "eps=1e-12)", tolerance="rtol 8e-3 (one bf16 ulp)",
                                 by_shape=library, b2_faster_everywhere=True),
@@ -983,7 +1070,8 @@ def phase_kernel_b2(card: str, norm_shapes, fp32_shapes):
                           bytes=sum(t["bytes"] for t in per_shape)),
          per_shape=per_shape)
     return (dict(largest, largest_training=largest_training,
-                 largest_training_by_model=largest_training_by_model, per_step=per_step,
+                 largest_training_by_model=largest_training_by_model,
+                 zoo_largest_by_model=zoo_largest_by_model, per_step=per_step,
                  batch_norm_affine=library, c_sweep=c_sweep),
             max(max_err.values()))
 
@@ -997,7 +1085,7 @@ def seeded_model(device, state_dict=None, name="linknet34"):
 
 def no_dropout(model):
     for m in model.modules():
-        if isinstance(m, torch.nn.Dropout2d):
+        if isinstance(m, (torch.nn.Dropout, torch.nn.Dropout2d)):
             m.p = 0.0
     return model
 
@@ -1138,7 +1226,8 @@ def _grad_summary(errs):
 
 def parity_runs(name, loss_name, x, y, variants, optimizer="sgd", freeze_encoder=False):
     """One ``optimizer`` step of the seeded ``name`` model, dropout off, per
-    variant ``(key, device, dtype)`` (key ``card_no_cudnn`` turns cuDNN off;
+    variant ``(key, device, dtype)`` (key ``card_no_cudnn`` turns cuDNN off,
+    ``cpu_channels_last`` runs the CPU in channels_last memory;
     ``freeze_encoder``: the encoder's gradients zeroed):
     ``{key: (loss, gradients, state, launches)}``, launches on the card."""
     runs = {}
@@ -1146,13 +1235,17 @@ def parity_runs(name, loss_name, x, y, variants, optimizer="sgd", freeze_encoder
         for key, device, dtype in variants:
             torch.backends.cudnn.enabled = key != "card_no_cudnn"
             model = no_dropout(seeded_model(device, name=name).to(dtype))
+            xb = x.to(device, dtype)
+            if key == "cpu_channels_last":
+                model = model.to(memory_format=torch.channels_last)
+                xb = xb.contiguous(memory_format=torch.channels_last)
             trainable = (without_encoder(name, (n for n, _ in model.named_parameters()))
                          if freeze_encoder else None)
             step = make_train_step(model, get_optimizer(optimizer, model.parameters(), PARITY_LR),
                                    get_loss(loss_name), default_metrics(),
                                    trainable_mask=trainable)
             kernels.reset_launch_counts()
-            logs = step(x.to(device, dtype), y.to(device, dtype), PARITY_LR)
+            logs = step(xb, y.to(device, dtype), PARITY_LR)
             launches = None
             if device == "cuda":
                 torch.cuda.synchronize()
@@ -1494,6 +1587,233 @@ def phase_train_unet11(smi: str):
     return dict(launches)
 
 
+# The zoo's parity runs: the card, the CPU in two memory layouts (two fp32
+# roundings of the same step) and the CPU in float64.
+ZOO_VARIANTS = (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                ("cpu_channels_last", "cpu", torch.float32), ("cpu_f64", "cpu", torch.float64))
+# A zoo gate is PARITY_TOL's, or ZOO_NOISE x the larger of the two CPU fp32
+# runs' own errors against float64 where that is larger.
+ZOO_NOISE = 4
+
+
+def zoo_verdict(runs, expected_launches):
+    """A zoo model's step, card against float64: each gate of PARITY_TOL, or
+    ZOO_NOISE x the CPU fp32 steps' own error against float64 where that is
+    larger (the deep models' steps are ill-conditioned at 2 x 3 x 64^2:
+    PSPNet's pyramid normalises 2 rows at bin 1, and 100-155 layers of
+    random init move a gradient by percents between two fp32 roundings).
+    Loss, the gradients' median and max, each running statistic, and each
+    updated parameter tensor to the move that a gradient error at the
+    gradient gate allows; launches as the layer count. ``(fields, ok)``."""
+    loss_g, grads_g, state_g, launches = runs["card"]
+    loss_64, grads_64, state_64 = runs["cpu_f64"][:3]
+    cpus = [runs["cpu"], runs["cpu_channels_last"]]
+    t, k_noise = PARITY_TOL, ZOO_NOISE
+    card_64 = _grad_errors(grads_g, grads_64)
+    cpu_64 = [_grad_errors(c[1], grads_64) for c in cpus]
+    gates = dict(loss=max(t["loss_rtol"] * abs(loss_64),
+                          k_noise * max(abs(c[0] - loss_64) for c in cpus)),
+                 grad_median=max(t["grad_median"], k_noise * max(e[len(e) // 2][0] for e in cpu_64)),
+                 grad_max=max(t["grad_max"], k_noise * max(e[0][0] for e in cpu_64)))
+    floor = t["grad_floor"] * max(float(g.abs().max()) for g in grads_64.values())
+    worst_state, state_ok = (0.0, None), True
+    for k, v in state_64.items():
+        if k.endswith("num_batches_tracked"):
+            state_ok &= int(state_g[k]) == 1 and all(int(c[2][k]) == 1 for c in cpus)
+            continue
+        v = v.double()
+        err = float((state_g[k].double() - v).abs().max())
+        cpu_err = max(float((c[2][k].double() - v).abs().max()) for c in cpus)
+        if k.endswith(("running_mean", "running_var")):
+            gate = max(t["stats_atol"] + t["stats_rtol"] * float(v.abs().max()), k_noise * cpu_err)
+        else:
+            # SGD's move for a gradient error at the gradient gate, as parity_verdict's
+            delta = gates["grad_max"] * max(float(grads_64[k].abs().max()), floor)
+            gate = PARITY_LR * delta + t["params_atol"]
+        worst_state = max(worst_state, (err / gate, k), key=lambda r: r[0])
+        state_ok &= err <= gate
+    ok = (abs(loss_g - loss_64) <= gates["loss"] and np.isfinite(loss_g)
+          and card_64[len(card_64) // 2][0] <= gates["grad_median"]
+          and card_64[0][0] <= gates["grad_max"] and state_ok
+          and launches == expected_launches)
+    fields = dict(loss_card=loss_g, loss_cpu=[c[0] for c in cpus], loss_cpu_f64=loss_64,
+                  grad_err_card_vs_f64=_grad_summary(card_64),
+                  grad_err_cpu_vs_f64=[_grad_summary(e) for e in cpu_64],
+                  grad_err_card_vs_cpu=_grad_summary(_grad_errors(grads_g, runs["cpu"][1])),
+                  gates=gates, state_err_over_gate=dict(worst=worst_state[0], name=worst_state[1]),
+                  launches=launches, expected_launches=expected_launches)
+    return fields, bool(ok)
+
+
+def zoo_eval_parity(name, side, seed):
+    """:func:`eval_parity` held to float64: the seeded full-width ``name``,
+    calibrated on the CPU on 2 x 3 x side^2, one 1 x 3 x side^2 fp32 eval
+    forward on the card (TF32 off), on the CPU and on the CPU in float64.
+    The card's probabilities within atol 1e-3 of float64's, or within
+    ZOO_NOISE x the CPU fp32 forwards' own error (NCHW and channels_last)
+    where that is larger: calibrated on two images, a random-init
+    ResNet-152 has channels of near-zero running variance whose eval
+    BatchNorm scales rounding by up to 1/sqrt(eps). ``(fields, ok)``."""
+    rng = np.random.default_rng(seed)
+    cpu_model = seeded_model("cpu", name=name)
+    calibrate_norms(cpu_model, torch.from_numpy(rng.standard_normal((2, 3, side, side), np.float32) * 0.5))
+    gpu_model = seeded_model("cuda", cpu_model.state_dict(), name=name)
+    x = torch.from_numpy(rng.standard_normal((1, 3, side, side), np.float32) * 0.5)
+    with fp32_convolutions(), torch.inference_mode():
+        got = gpu_model(x.cuda().contiguous(memory_format=torch.channels_last)).cpu()
+        want = cpu_model(x)
+        want_cl = cpu_model.to(memory_format=torch.channels_last)(
+            x.contiguous(memory_format=torch.channels_last))
+        want64 = cpu_model.double()(x.double())
+    prob = lambda t: torch.sigmoid(t.double())
+    err = (prob(got) - prob(want64)).abs().max().item()
+    cpu_err = max((prob(w) - prob(want64)).abs().max().item() for w in (want, want_cl))
+    gate = max(1e-3, ZOO_NOISE * cpu_err)
+    ok = got.shape == (1, 1, side, side) and bool(torch.isfinite(got).all()) and err <= gate
+    return dict(forward_input=[1, 3, side, side],
+                max_abs_err_logits_vs_cpu=(got - want).abs().max().item(),
+                max_abs_err_probs_vs_cpu=(prob(got) - prob(want)).abs().max().item(),
+                max_abs_err_probs_vs_f64=err, cpu_max_abs_err_probs_vs_f64=cpu_err,
+                forward_gate=gate, logit_std=want.std().item(), forward_ok=ok), ok
+
+
+def phase_zoo_parity():
+    """Each zoo model at full width: the fp32 eval forward on the card (TF32
+    off) at 1 x 3 x side^2 by :func:`zoo_eval_parity`, then one SGD bce step
+    on 2 x 3 x 64^2 SHAPES (dropout off) on the card, the CPU and the CPU in
+    float64, by :func:`zoo_verdict`; launches as the layer count; PSPNet's
+    head BatchNorms at momentum 0.95."""
+    xs, ys = to_nchw([ShapesDataset(2, 64, seed=SEED + 34)[i] for i in range(2)])
+    results, failed = {}, []
+    for i, name in enumerate(ZOO_BATCH):
+        t0 = time.perf_counter()
+        forward, forward_ok = zoo_eval_parity(name, ZOO_SIDE[name], SEED + 90 + i)
+        runs = parity_runs(name, "bce", xs, ys, ZOO_VARIANTS)
+        fields, step_ok = zoo_verdict(runs, MODEL_STEP_LAUNCHES[name])
+        results[name] = dict(forward, **fields, step_ok=step_ok, seconds=time.perf_counter() - t0)
+        if not (forward_ok and step_ok):
+            failed.append(name)
+        del runs
+        torch.cuda.empty_cache()
+    psp = seeded_model("cpu", name="psp_net")
+    momenta = sorted({m.momentum for n, m in psp.named_modules()
+                      if isinstance(m, BatchNormTorch) and n.startswith(("ppm.", "final."))})
+    ok = not failed and momenta == [0.95]
+    emit("zoo_parity", step_input=[2, 3, 64, 64], lr=PARITY_LR, models=results,
+         psp_head_momenta=momenta, failed=failed, ok=ok)
+    if not ok:
+        raise AssertionError(f"zoo_parity failed: {failed}")
+
+
+def _bf16_bilinear(x, out_hw, align_corners=True):
+    """``upsample_bilinear`` with its output kept in its input's dtype (a
+    variant timed beside the port's, not used by it)."""
+    with torch.autocast(x.device.type, enabled=False):
+        return layers_mod.upsample_bilinear(x, out_hw, align_corners)
+
+
+def phase_train_zoo(smi: str):
+    """Each zoo model at patch 512, bf16 autocast, bce, SGD lr 1e-3, on one
+    fixed DeviceShapes batch (ZOO_BATCH): 3 warm then 5 timed steps,
+    launches per step as the layer count, finite losses, no copy of a
+    BatchNorm input; whether the last loss is below the first is reported
+    per model (``loss_fell``), and a model whose loss did not fall is
+    listed, not failed. Then GCN's and PSPNet's steps again with the
+    bilinear upsampling kept in bf16, 1 warm and 3 timed."""
+    runs, launches, failed = {}, Counter(), []
+    for name, batch in ZOO_BATCH.items():
+        run = train_run(name, "bce", "sgd", TRAIN_WARMUP, ZOO_STEPS, batch=batch)
+        run["ok"] = _run_ok(run, MODEL_STEP_LAUNCHES[name], decreasing=False)
+        run["loss_fell"] = run["losses"][-1] < run["losses"][0]
+        if not run["ok"]:
+            failed.append(name)
+        launches.update(run["launches"])
+        runs[name] = {k: run[k] for k in ("batch", "steps", "images_per_s", "ms_per_step",
+                                          "warm_s", "max_memory_allocated", "first_loss",
+                                          "last_loss", "losses", "loss_fell",
+                                          "launches_per_step", "dense_copies", "ok")}
+        torch.cuda.empty_cache()
+    bilinear = {}
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        up = layers_mod.upsample_bilinear(torch.zeros(1, 4, 2, 2, device="cuda",
+                                                      dtype=torch.bfloat16), (4, 4))
+    for name, module_name in ZOO_BILINEAR.items():
+        module = importlib.import_module(module_name)
+        saved = module.upsample_bilinear
+        module.upsample_bilinear = _bf16_bilinear
+        try:
+            run = train_run(name, "bce", "sgd", 1, 3, batch=ZOO_BATCH[name])
+        finally:
+            module.upsample_bilinear = saved
+        bilinear[name] = dict(ms_per_step_bf16_upsampling=run["ms_per_step"],
+                              ms_per_step_fp32_upsampling=runs[name]["ms_per_step"],
+                              max_memory_allocated_bf16_upsampling=run["max_memory_allocated"],
+                              losses=run["losses"])
+        torch.cuda.empty_cache()
+    ok = not failed
+    emit("train_zoo", card=smi, patch=PATCH, dtype="bf16 autocast", loss="bce", optimizer="sgd",
+         lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, models=runs,
+         expected_launches_per_step={m: MODEL_STEP_LAUNCHES[m] for m in ZOO_BATCH},
+         upsample_bilinear_dtype_under_autocast=str(up.dtype), bilinear_in_bf16=bilinear,
+         loss_not_falling=[m for m, r in runs.items() if not r["loss_fell"]], failed=failed,
+         ok=ok)
+    if not ok:
+        raise AssertionError(f"train_zoo failed: {failed}")
+    return dict(launches)
+
+
+def phase_serve_zoo(smi: str):
+    """The submit CLI's path (``predict_tiled_stream``) with DilatedLinkNet34
+    over one seeded 5000 x 5000 image after a warm 1024 x 1024 one: patch
+    512, tile batch 64, D4 TTA, bf16. Eval-mode BatchNorm is F.batch_norm
+    over the running statistics: no kernel of this repo runs."""
+    model = seeded_model("cuda", name="dilated_linknet34")
+    transform = aug.Sequential([aug.ImageOnly(aug.NormalizeImage(mean=INRIA_MEAN, std=INRIA_STD))])
+    rng = np.random.default_rng(SEED + 2)
+    image = rng.integers(0, 256, (IMAGE_SIDE, IMAGE_SIDE, 3), dtype=np.uint8)
+    fn = make_predict_step(model, bf16=True)
+    kw = dict(test_transform=transform, patch_size=PATCH, batch_size=BATCH, tta=True,
+              weight="pyramid", device="cuda")
+    predict_tiled(image[:1024, :1024], fn, threshold=0.5, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    (key, mask), = list(predict_tiled_stream([(0, lambda: image)], fn, threshold=0.5,
+                                             depth=DEPTH, **kw))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    ok = (mask.shape == (IMAGE_SIDE, IMAGE_SIDE) and mask.dtype == np.uint8
+          and set(np.unique(mask).tolist()) <= {0, 255} and launches == NO_LAUNCHES)
+    emit("serve_zoo", card=smi, model="dilated_linknet34", s_per_image=seconds,
+         image=[IMAGE_SIDE, IMAGE_SIDE, 3], patch=PATCH, batch=BATCH, tta=8, dtype="bfloat16",
+         max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+         mask_positive_share=float(mask.mean() / 255), ok=bool(ok))
+    if not ok:
+        raise AssertionError("serve_zoo checks failed")
+    return launches
+
+
+def phase_train_cli_psp_net(tmpdir: Path):
+    """The train CLI on ``-m psp_net -d shapes-device -s 2 -e 1 --bf16`` at
+    batch 8, patch 512, bce, SGD: launches 2 x (218, 109, 0), and none in
+    the validation batch (eval-mode BatchNorm)."""
+    exp = tmpdir / "psp_net"
+    argv = ["-m", "psp_net", "-l", "bce", "-o", "sgd", "-lr", "1e-3", "-b",
+            str(ZOO_BATCH["psp_net"]), "-p", str(PATCH), "--bf16", "--no-tensorboard", "--seed",
+            "0", "-d", "shapes-device", "-s", "2", "-e", "1", "--experiments-dir", str(exp)]
+    history, out = cli_run("psp_net", argv, 2, 1, None,
+                           step_launches=MODEL_STEP_LAUNCHES["psp_net"],
+                           eval_launches=NO_LAUNCHES, batch=ZOO_BATCH["psp_net"])
+    files = sorted(p.name for p in exp.rglob("*.pth"))
+    ok = history["epoch"] == [0] and files == ["psp_net_checkpoint.pth", "psp_net_snapshot.pth"]
+    emit("train_cli_psp_net", run=out, files=files, ok=bool(ok))
+    if not ok:
+        raise AssertionError("train_cli_psp_net checks failed")
+    return out["launches"]
+
+
 class EpochTimer:
     """Stands in for the train CLI's epoch runners and times them: the host
     time of each train and validation epoch, synchronised at both ends, and
@@ -1687,9 +2007,6 @@ def phase_train_ab_cli(step_ms: float, tmpdir: Path):
     if not ok:
         raise AssertionError("train_ab_cli checks failed")
     return out["launches"]
-
-
-NO_LAUNCHES = {"channel_sums": 0, "abn_norm_act": 0, "abn_bwd": 0}
 
 
 def phase_train_cli_albunet(step_ms: float, tmpdir: Path):
@@ -1909,10 +2226,14 @@ def main(argv=None) -> int:
     norm_shapes = {m: step_norm_shapes(b, PATCH, model_name=m) for m, b in KERNEL_MODELS.items()}
     nuclei_shapes = {m: step_norm_shapes(ab_nuclei.BATCH, ab_nuclei.PATCH, model_name=m)
                      for m in NUCLEI_LAUNCHES}
+    zoo_shapes = {m: step_norm_shapes(b, PATCH, model_name=m) for m, b in ZOO_BATCH.items()
+                  if NORM_LAYERS[m][0]}
+    fp32_shapes = dict(nuclei_shapes, **{
+        f"{m} parity": step_norm_shapes(2, 64, model_name=m) for m in zoo_shapes})
     torch.cuda.empty_cache()
-    b1, b1_err = phase_kernel_b1(card, norm_shapes, nuclei_shapes)
+    b1, b1_err = phase_kernel_b1(card, norm_shapes, fp32_shapes, zoo_shapes)
     b3, b3_err = phase_kernel_b3(card, norm_shapes, nuclei_shapes)
-    b2, b2_err = phase_kernel_b2(card, norm_shapes, nuclei_shapes)
+    b2, b2_err = phase_kernel_b2(card, norm_shapes, fp32_shapes, zoo_shapes)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         state_dict = phase_model_parity(Path(tmp))
@@ -1929,6 +2250,12 @@ def main(argv=None) -> int:
     phase_albunet_parity()
     counts["train_albunet"], albunet_ms = phase_train_albunet(smi)
     counts["train_unet11"] = phase_train_unet11(smi)
+    torch.cuda.empty_cache()
+    phase_zoo_parity()
+    counts["train_zoo"] = phase_train_zoo(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        counts["train_cli_psp_net"] = phase_train_cli_psp_net(Path(tmp))
+    counts["serve_zoo"] = phase_serve_zoo(smi)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         counts["train_cli"] = phase_train_cli(step_ms, Path(tmp))
@@ -1956,6 +2283,7 @@ def main(argv=None) -> int:
                      sum(by_path["channel_sums"].values()), b1_err, b1,
                      form="single (sum x, sum x^2); library: torch.var_mean",
                      pair=b1["pair"], largest_by_model=b1["largest_by_model"],
+                     zoo_largest_by_model=b1["zoo_largest_by_model"],
                      scalar_loads={k: v for k, v in b1["scalar_loads"].items() if k != "per_shape"},
                      per_step=_per_step_entry(b1["per_step"]),
                      launches_by_path=by_path["channel_sums"]),
@@ -1963,6 +2291,7 @@ def main(argv=None) -> int:
                      sum(by_path["abn_norm_act"].values()), b2_err, dict(b2, library_ms=None),
                      largest_training=b2["largest_training"],
                      largest_training_by_model=b2["largest_training_by_model"],
+                     zoo_largest_by_model=b2["zoo_largest_by_model"],
                      batch_norm_affine=b2["batch_norm_affine"], c_sweep=b2["c_sweep"],
                      per_step=_per_step_entry(b2["per_step"]),
                      launches_by_path=by_path["abn_norm_act"]),

@@ -25,19 +25,22 @@ Entry = Tuple[str, str, Tuple[str, ...]]  # (kind, torch_prefix, segtpu_path)
 
 
 def _entries_resnet_encoder(prefix_map: Dict[str, str], layers,
-                            root: Tuple[str, ...] = ("encoder",)) -> List[Entry]:
-    """torchvision-style BasicBlock ResNet keys under arbitrary attribute
-    prefixes (segtpu torch_import.py:109-129)."""
+                            root: Tuple[str, ...] = ("encoder",),
+                            bottleneck: bool = False) -> List[Entry]:
+    """torchvision-style ResNet keys under arbitrary attribute prefixes
+    (segtpu torch_import.py:109-129): two convs per BasicBlock, three per
+    Bottleneck."""
     E: List[Entry] = [
         ("conv", prefix_map["conv1"], root + ("conv1", "Conv_0")),
         ("bn", prefix_map["bn1"], root + ("bn1",)),
     ]
+    convs = (1, 2, 3) if bottleneck else (1, 2)
     for li, n_blocks in enumerate(layers):
         lp = prefix_map[f"layer{li + 1}"]
         for b in range(n_blocks):
             tp = f"{lp}.{b}"
             name = root + (f"layer{li + 1}_{b}",)
-            for ci in (1, 2):
+            for ci in convs:
                 E.append(("conv", f"{tp}.conv{ci}", name + (f"conv{ci}", "Conv_0")))
                 E.append(("bn", f"{tp}.bn{ci}", name + (f"bn{ci}",)))
             E.append(("conv?", f"{tp}.downsample.0", name + ("downsample_conv", "Conv_0")))
@@ -69,6 +72,33 @@ def _entries_linknet34() -> List[Entry]:
         ("deconv", "finaldeconv1", ("finaldeconv1", "ConvTranspose_0")),
         ("conv", "finalconv2", ("finalconv2", "Conv_0")),
         ("conv", "finalconv3", ("finalconv3", "Conv_0")),
+    ]
+    return E
+
+
+def _entries_dilated_linknet34() -> List[Entry]:
+    """reference dilated_linknet.py:42-99 as segtpu fixes it (segtpu
+    torch_import.py:160-210): segtpu's LinkNet34 under ``linknet``, plain
+    BatchNorms ``norm1..3``, and ``deconv2`` a 3x3 conv in decoder4 and
+    decoder3."""
+    root = ("linknet",)
+    E = _entries_resnet_encoder(_linknet_enc_map(), (3, 4, 6, 3), root=root + ("encoder",))
+    for i in range(1, 5):
+        tp, fp = f"decoder{i}", root + (f"decoder{i}",)
+        stride1 = i in (3, 4)
+        E += [
+            ("conv", f"{tp}.conv1", fp + ("conv1", "Conv_0")),
+            ("bn", f"{tp}.norm1", fp + ("n1_bn",)),
+            ("conv" if stride1 else "deconv", f"{tp}.deconv2",
+             fp + ("deconv2", "Conv_0" if stride1 else "ConvTranspose_0")),
+            ("bn", f"{tp}.norm2", fp + ("n2_bn",)),
+            ("conv", f"{tp}.conv3", fp + ("conv3", "Conv_0")),
+            ("bn", f"{tp}.norm3", fp + ("n3_bn",)),
+        ]
+    E += [
+        ("deconv", "finaldeconv1", root + ("finaldeconv1", "ConvTranspose_0")),
+        ("conv", "finalconv2", root + ("finalconv2", "Conv_0")),
+        ("conv", "finalconv3", root + ("finalconv3", "Conv_0")),
     ]
     return E
 
@@ -181,6 +211,110 @@ def _entries_tiramisu(down_blocks, up_blocks, bottleneck_layers) -> List[Entry]:
     return E
 
 
+# Where the GCN, PSPNet and DUC keep the ResNet's modules: layer0 = (conv1,
+# bn1, ...); GCN's layer1 = (maxpool, layer1), hence ``layer1.1``.
+def _layers_map(layer1: str = "layer1") -> Dict[str, str]:
+    return {"conv1": "layer0.0", "bn1": "layer0.1", "layer1": layer1, "layer2": "layer2",
+            "layer3": "layer3", "layer4": "layer4"}
+
+
+def _entries_gcn(layers, bottleneck: bool) -> List[Entry]:
+    """reference gcn152.py:64-167 (segtpu torch_import.py:236-248)."""
+    E = _entries_resnet_encoder(_layers_map("layer1.1"), layers, bottleneck=bottleneck)
+    for i in range(1, 5):
+        for leg in ("conv_l1", "conv_l2", "conv_r1", "conv_r2"):
+            E.append(("conv", f"gcm{i}.{leg}", (f"gcm{i}", leg, "Conv_0")))
+    for i in range(1, 10):
+        E.append(("conv", f"brm{i}.conv1", (f"brm{i}", "conv1", "Conv_0")))
+        E.append(("conv", f"brm{i}.conv2", (f"brm{i}", "conv2", "Conv_0")))
+    return E
+
+
+def _entries_ppm(tp: str = "ppm", fp: Tuple[str, ...] = ("ppm",)) -> List[Entry]:
+    """PSPNet's pyramid: bin i's conv and BatchNorm at ``features.{i}.1/.2``."""
+    E: List[Entry] = []
+    for idx, s in enumerate((1, 2, 3, 6)):
+        E.append(("conv", f"{tp}.features.{idx}.1", fp + (f"conv_{s}", "Conv_0")))
+        E.append(("bn", f"{tp}.features.{idx}.2", fp + (f"bn_{s}",)))
+    return E
+
+
+def _entries_psp() -> List[Entry]:
+    """reference psp_net.py:42-96 (segtpu torch_import.py:251-265)."""
+    E = _entries_resnet_encoder(_layers_map(), (3, 4, 23, 3), bottleneck=True)
+    E += _entries_ppm()
+    E += [
+        ("conv", "final.0", ("final_conv", "Conv_0")),
+        ("bn", "final.1", ("final_bn",)),
+        ("conv", "final.4", ("final_cls", "Conv_0")),
+        ("conv?", "aux_logits", ("aux_logits", "Conv_0")),
+    ]
+    return E
+
+
+def _entries_duc_head(tp: str = "duc", fp: Tuple[str, ...] = ("duc",)) -> List[Entry]:
+    return [("conv", f"{tp}.conv", fp + ("conv", "Conv_0")), ("bn", f"{tp}.bn", fp + ("bn",))]
+
+
+def _entries_duc() -> List[Entry]:
+    """reference duc_hdc.py:24-101 (segtpu torch_import.py:268-275)."""
+    return (_entries_resnet_encoder(_layers_map(), (3, 8, 36, 3), bottleneck=True)
+            + _entries_duc_head())
+
+
+def _entries_linknext() -> List[Entry]:
+    """reference linknext.py:227-278 over ResNeXt-26 2x64d, as segtpu fixes
+    it (segtpu torch_import.py:278-318): decoder1's ``deconv2`` is a 3x3
+    conv."""
+    root = ("encoder",)
+    E: List[Entry] = [
+        ("conv", "encoder0.0", root + ("conv0", "Conv_0")),
+        ("bn", "encoder0.1", root + ("bn0",)),
+    ]
+    for li in range(4):
+        for b in range(2):
+            tp, fp = f"encoder{li + 1}.{b}", root + (f"layer{li + 1}_{b}",)
+            for kind, name in (("conv", "conv1_0"), ("bn", "bn1"), ("conv", "conv3_0"),
+                               ("bn", "bn2"), ("conv", "conv1_1"), ("bn", "bn3")):
+                E.append((kind, f"{tp}.basic.{name}",
+                          fp + ((name, "Conv_0") if kind == "conv" else (name,))))
+            E.append(("conv?", f"{tp}.shortcut.0", fp + ("shortcut", "Conv_0")))
+            E.append(("bn", f"{tp}.bn0", fp + ("bn0",)))
+    for i in range(1, 5):
+        tp, fp = f"decoder{i}", (f"decoder{i}",)
+        stride1 = i == 1
+        E += [
+            ("conv", f"{tp}.conv1", fp + ("conv1", "Conv_0")),
+            ("bn", f"{tp}.norm1", fp + ("norm1",)),
+            ("conv" if stride1 else "deconv", f"{tp}.deconv2",
+             fp + ("deconv2", "Conv_0" if stride1 else "ConvTranspose_0")),
+            ("bn", f"{tp}.norm2", fp + ("norm2",)),
+            ("conv", f"{tp}.conv3", fp + ("conv3", "Conv_0")),
+            ("bn", f"{tp}.norm3", fp + ("norm3",)),
+        ]
+    E += [
+        ("deconv", "finaldeconv1", ("finaldeconv1", "ConvTranspose_0")),
+        ("conv", "finalconv2", ("finalconv2", "Conv_0")),
+        ("conv", "finalconv3", ("finalconv3", "Conv_0")),
+    ]
+    return E
+
+
+def _entries_squeezenet() -> List[Entry]:
+    """reference squeezenet.py:68-151 (segtpu torch_import.py:321-339)."""
+    E: List[Entry] = [("conv", "conv1", ("conv1", "Conv_0"))]
+    for i in range(2, 10):
+        for leg in ("squeeze", "expand1x1", "expand3x3"):
+            E.append(("conv", f"fire{i}.{leg}", (f"fire{i}", leg, "Conv_0")))
+    E.append(("conv", "conv10.0", ("conv10", "Conv_0")))
+    E.append(("conv", "dconv10.0", ("dconv10", "Conv_0")))
+    for i in range(2, 10):
+        for leg in ("expand1x1", "expand3x3", "squeeze"):
+            E.append(("conv", f"dfire{i}.{leg}", (f"dfire{i}", leg, "Conv_0")))
+    E.append(("conv", "dconv1", ("dconv1", "Conv_0")))
+    return E
+
+
 _ENTRY_BUILDERS = {
     "linknet34": _entries_linknet34,
     "unet": _entries_unet,
@@ -193,6 +327,14 @@ _ENTRY_BUILDERS = {
     "tiramisu57": lambda: _entries_tiramisu((4,) * 5, (4,) * 5, 4),
     "tiramisu67": lambda: _entries_tiramisu((5,) * 5, (5,) * 5, 5),
     "tiramisu103": lambda: _entries_tiramisu((4, 5, 7, 10, 12), (12, 10, 7, 5, 4), 15),
+    "dilated_linknet34": _entries_dilated_linknet34,
+    "gcn": lambda: _entries_gcn((3, 8, 36, 3), True),
+    "gcn34": lambda: _entries_gcn((3, 4, 6, 3), False),
+    "psp_net": _entries_psp,
+    "duc": _entries_duc,
+    "duc_dc": _entries_duc,
+    "linknext": _entries_linknext,
+    "squeezenet": _entries_squeezenet,
 }
 
 

@@ -4,9 +4,12 @@
 model with weights drawn from ``torch.Generator().manual_seed(seed)`` on the
 CPU, puts it in eval mode and moves it to ``device`` (CUDA unless the caller
 passes ``device="cpu"``); on CUDA the model runs in ``channels_last`` memory.
-Ported so far, each at segtpu's registry defaults: ``linknet34``, ``unet``,
-``unet_abn`` and ``zf_unet`` (32 filters), ``unet11``, ``unet16`` and
-``albunet`` (32 filters), ``tiramisu57``, ``tiramisu67`` and ``tiramisu103``.
+All 18 of segtpu's registry names, each at segtpu's registry defaults:
+``linknet34`` and ``dilated_linknet34``, ``unet``, ``unet_abn`` and
+``zf_unet`` (32 filters), ``unet11``, ``unet16`` and ``albunet`` (32
+filters), ``tiramisu57``, ``tiramisu67`` and ``tiramisu103``, ``gcn``
+(ResNet-152) and ``gcn34``, ``psp_net``, ``duc`` and ``duc_dc``,
+``linknext`` and ``squeezenet``.
 
 ``ENCODER_PREFIXES`` names each model's encoder, the parameters that
 ``--freeze-encoder`` freezes.
@@ -21,8 +24,13 @@ from torch import nn
 
 from segtpu_torch.device import DeviceLike, resolve_device
 from segtpu_torch.models.albunet import AlbuNet
+from segtpu_torch.models.duc_hdc import ResNetDUC, ResNetDUCHDC
+from segtpu_torch.models.gcn import GCN34, GCN152
 from segtpu_torch.models.layers import reset_parameters
-from segtpu_torch.models.linknet import LinkNet34
+from segtpu_torch.models.linknet import DilatedLinkNet34, LinkNet34
+from segtpu_torch.models.linknext import LinkNext
+from segtpu_torch.models.psp import PSPNet
+from segtpu_torch.models.squeezenet import SqueezeNet
 from segtpu_torch.models.ternaus import UNet11, UNet16
 from segtpu_torch.models.tiramisu import FCDenseNet57, FCDenseNet67, FCDenseNet103
 from segtpu_torch.models.unet import UNet, UNetABN, ZF_UNET
@@ -39,17 +47,37 @@ _REGISTRY: Dict[str, Callable[[int, int], nn.Module]] = {
     "tiramisu57": lambda patch_size, num_channels: FCDenseNet57(in_channels=num_channels),
     "tiramisu67": lambda patch_size, num_channels: FCDenseNet67(in_channels=num_channels),
     "tiramisu103": lambda patch_size, num_channels: FCDenseNet103(in_channels=num_channels),
+    "dilated_linknet34": lambda patch_size, num_channels: DilatedLinkNet34(
+        num_channels=num_channels),
+    "gcn": lambda patch_size, num_channels: GCN152(num_channels=num_channels),
+    "gcn34": lambda patch_size, num_channels: GCN34(num_channels=num_channels),
+    # the reference registry's PSPNet(use_aux=False, num_classes=1)
+    "psp_net": lambda patch_size, num_channels: PSPNet(num_channels=num_channels),
+    "duc": lambda patch_size, num_channels: ResNetDUC(num_channels=num_channels),
+    "duc_dc": lambda patch_size, num_channels: ResNetDUCHDC(num_channels=num_channels),
+    "linknext": lambda patch_size, num_channels: LinkNext(num_channels=num_channels),
+    "squeezenet": lambda patch_size, num_channels: SqueezeNet(in_channels=num_channels),
 }
 
 # Parameter-name prefixes of each model's encoder: the modules under segtpu's
-# ENCODER_SPECS paths (segtpu/compat/encoder_weights.py:44-67), by the names
-# that compat/jax_params.py maps them to.
+# ENCODER_SPECS paths (segtpu/compat/encoder_weights.py:44-67), or under a
+# top-level "encoder" subtree where a model has no spec (LinkNext's), by the
+# names that compat/jax_params.py maps them to. SqueezeNet has none.
 _VGG_STAGES = ("conv1.", "conv2.", "conv3.", "conv4.", "conv5.")
+_LINKNET_ENCODER = ("firstconv.", "firstbn.", "encoder1.", "encoder2.", "encoder3.", "encoder4.")
+_LAYERS_ENCODER = ("layer0.", "layer1.", "layer2.", "layer3.", "layer4.")
 ENCODER_PREFIXES = {
-    "linknet34": ("firstconv.", "firstbn.", "encoder1.", "encoder2.", "encoder3.", "encoder4."),
+    "linknet34": _LINKNET_ENCODER,
+    "dilated_linknet34": _LINKNET_ENCODER,
     "unet11": _VGG_STAGES,
     "unet16": _VGG_STAGES,
     "albunet": ("encoder.",),
+    "gcn": _LAYERS_ENCODER,
+    "gcn34": _LAYERS_ENCODER,
+    "psp_net": _LAYERS_ENCODER,
+    "duc": _LAYERS_ENCODER,
+    "duc_dc": _LAYERS_ENCODER,
+    "linknext": ("encoder0.", "encoder1.", "encoder2.", "encoder3.", "encoder4."),
 }
 
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
-from typing import Optional
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -128,12 +128,18 @@ class InPlaceABN(nn.Module):
             training=False, eps=self.eps, activation=self.activation, slope=self.slope)
 
 
+_Size = Union[int, Tuple[int, int]]
+
+
 class Conv(nn.Conv2d):
     """``nn.Conv2d`` with segtpu ``Conv``'s defaults (3x3, no padding) and
-    torch's default init, U(+-1/sqrt(fan_in)) for weight and bias."""
+    torch's default init, U(+-1/sqrt(fan_in)) for weight and bias, where
+    fan_in = in_channels / groups * kh * kw. ``kernel_size`` and ``padding``
+    take an int or an (h, w) pair: GCN's (7, 1) kernel with padding (3, 0)
+    is segtpu's ``Conv(k, (7, 1), padding=[(3, 3), (0, 0)])``."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 stride: int = 1, padding: int = 0, dilation: int = 1,
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: _Size = 3,
+                 stride: int = 1, padding: _Size = 0, dilation: int = 1,
                  groups: int = 1, bias: bool = True):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=padding, dilation=dilation, groups=groups, bias=bias)
@@ -183,6 +189,31 @@ def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     loses nothing in bf16, which is where segtpu runs it."""
     with torch.autocast(x.device.type, enabled=False):
         return F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+def upsample_bilinear(x: torch.Tensor, out_hw: Sequence[int],
+                      align_corners: bool = True) -> torch.Tensor:
+    """Bilinear resize of ``x`` to ``out_hw`` (segtpu ``upsample_bilinear``):
+    align_corners where both output sides are above 1, as the GCN, PSPNet
+    and DUC heads use it; else segtpu's ``jax.image.resize(method="linear")``,
+    half-pixel centres with an antialiasing triangle filter on a side that
+    shrinks: one pass per side, since torch's two-sided antialiased resize
+    goes wrong where one side grows and the other shrinks to 1. CUDA
+    autocast runs ``upsample_bilinear2d`` in fp32, so a bf16 input gives an
+    fp32 output, as segtpu's bf16-times-fp32-weights does."""
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    if align_corners and oh > 1 and ow > 1:
+        return F.interpolate(x, size=(oh, ow), mode="bilinear", align_corners=True)
+    h, w = x.shape[2:]
+    y = F.interpolate(x, size=(oh, w), mode="bilinear", align_corners=False, antialias=oh < h)
+    return F.interpolate(y, size=(oh, ow), mode="bilinear", align_corners=False,
+                         antialias=ow < w)
+
+
+def pixel_shuffle(x: torch.Tensor, upscale: int) -> torch.Tensor:
+    """(N, C*r*r, H, W) -> (N, C, H*r, W*r) (segtpu ``pixel_shuffle``): the
+    channels read as (C, r, r), torch's own order."""
+    return F.pixel_shuffle(x, upscale)
 
 
 def float_logits(out: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,13 @@
-"""LinkNet34 (counterpart of segtpu/models/linknet.py; reference
-lib/models/linknet.py): ResNet-34 encoder, 1x1 -> deconv(k4, s2) -> 1x1
-decoder blocks with InPlaceABN, additive skips, deconv + LeakyReLU head.
+"""LinkNet34 and DilatedLinkNet34 (counterpart of segtpu/models/linknet.py;
+reference lib/models/linknet.py, dilated_linknet.py): ResNet-34 encoder,
+1x1 -> deconv(k4, s2) -> 1x1 decoder blocks with InPlaceABN, additive
+skips, deconv + LeakyReLU head.
+
+DilatedLinkNet34 is segtpu's fixed variant of the reference's: the
+stride-8 dilated ResNet-34, plain BatchNorm + ReLU in the decoders (keys
+``decoder{i}.norm1..3``), decoder4 and decoder3 at stride 1 with a 3x3
+conv as ``deconv2`` (so that the additive skips align), and a ReLU head
+with no dropout. Its 48 BatchNorms run B1 and B2 in training mode.
 
 Attribute names are the reference's state_dict keys: ``firstconv``,
 ``firstbn``, ``encoder1..4``, ``decoder{i}.conv1/abn1/deconv2/abn2/conv3/abn3``,
@@ -19,24 +26,37 @@ import torch.nn.functional as F
 from torch import nn
 
 from segtpu_torch.models.encoders.resnet import resnet34
-from segtpu_torch.models.layers import Conv, ConvTranspose2dTorch, InPlaceABN, float_logits
+from segtpu_torch.models.layers import (BatchNormTorch, Conv, ConvTranspose2dTorch, InPlaceABN,
+                                        float_logits)
 
 
 class DecoderBlockLinkNet(nn.Module):
     """conv1x1 to in/4 -> deconv k4 s2 p1 -> conv1x1 to n_filters, each
-    followed by InPlaceABN (reference linknet.py:5-30)."""
+    followed by InPlaceABN (reference linknet.py:5-30). ``plain_bn``:
+    BatchNorm + ReLU instead, as ``norm1..3`` (dilated_linknet.py:10-39);
+    ``stride1``: a 3x3 conv in place of the deconv (segtpu
+    linknet.py:28-58)."""
 
-    def __init__(self, in_channels: int, n_filters: int):
+    def __init__(self, in_channels: int, n_filters: int, plain_bn: bool = False,
+                 stride1: bool = False):
         super().__init__()
         mid = in_channels // 4
+        self.plain_bn = plain_bn
+        norm = BatchNormTorch if plain_bn else InPlaceABN
+        prefix = "norm" if plain_bn else "abn"
         self.conv1 = Conv(in_channels, mid, 1)
-        self.abn1 = InPlaceABN(mid)
-        self.deconv2 = ConvTranspose2dTorch(mid, mid, 4, 2, padding=1)
-        self.abn2 = InPlaceABN(mid)
+        setattr(self, f"{prefix}1", norm(mid))
+        self.deconv2 = (Conv(mid, mid, 3, padding=1) if stride1
+                        else ConvTranspose2dTorch(mid, mid, 4, 2, padding=1))
+        setattr(self, f"{prefix}2", norm(mid))
         self.conv3 = Conv(mid, n_filters, 1)
-        self.abn3 = InPlaceABN(n_filters)
+        setattr(self, f"{prefix}3", norm(n_filters))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.plain_bn:
+            y = F.relu(self.norm1(self.conv1(x)), inplace=True)
+            y = F.relu(self.norm2(self.deconv2(y)), inplace=True)
+            return F.relu(self.norm3(self.conv3(y)), inplace=True)
         y = self.abn1(self.conv1(x))
         y = self.abn2(self.deconv2(y))
         return self.abn3(self.conv3(y))
@@ -44,13 +64,15 @@ class DecoderBlockLinkNet(nn.Module):
 
 class LinkNet34(nn.Module):
     """reference lib/models/linknet.py:33-90; logits in fp32 (float64 for a
-    float64 model, a CPU reference run)."""
+    float64 model, a CPU reference run). ``plain_bn`` and ``dilated`` as
+    segtpu's LinkNet34: DilatedLinkNet34 sets both."""
 
-    def __init__(self, num_classes: int = 1, num_channels: int = 3,
+    def __init__(self, num_classes: int = 1, num_channels: int = 3, plain_bn: bool = False,
                  dilated: bool = False, s2d: bool = False):
         super().__init__()
         if s2d:
             raise NotImplementedError("LinkNet34 s2d execution is not yet ported")
+        self.dilated = dilated
         filters = (64, 128, 256, 512)
         enc = resnet34(dilated=dilated, num_channels=num_channels)
         self.firstconv = enc.conv1
@@ -61,12 +83,14 @@ class LinkNet34(nn.Module):
         self.encoder3 = enc.layer3
         self.encoder4 = enc.layer4
 
-        self.decoder4 = DecoderBlockLinkNet(filters[3], filters[2])
-        self.decoder3 = DecoderBlockLinkNet(filters[2], filters[1])
-        self.decoder2 = DecoderBlockLinkNet(filters[1], filters[0])
-        self.decoder1 = DecoderBlockLinkNet(filters[0], filters[0])
+        # the stride-8 encoder: no upsampling in the deep decoders
+        self.decoder4 = DecoderBlockLinkNet(filters[3], filters[2], plain_bn, stride1=dilated)
+        self.decoder3 = DecoderBlockLinkNet(filters[2], filters[1], plain_bn, stride1=dilated)
+        self.decoder2 = DecoderBlockLinkNet(filters[1], filters[0], plain_bn)
+        self.decoder1 = DecoderBlockLinkNet(filters[0], filters[0], plain_bn)
 
-        self.finaldrop1 = nn.Dropout2d(0.5)
+        # the dilated variant has no dropout and a ReLU head (dilated_linknet.py:66-72, 94)
+        self.finaldrop1 = None if dilated else nn.Dropout2d(0.5)
         self.finaldeconv1 = ConvTranspose2dTorch(filters[0], 32, 3, 2)
         self.finalconv2 = Conv(32, 32, 3)
         self.finalconv3 = Conv(32, num_classes, 2, padding=1)
@@ -84,7 +108,16 @@ class LinkNet34(nn.Module):
         d2 = self.decoder2(d3) + e1
         d1 = self.decoder1(d2)
 
-        f = self.finaldeconv1(self.finaldrop1(d1))
-        f = F.leaky_relu(f, 0.01)
-        f = F.leaky_relu(self.finalconv2(f), 0.01)
+        if self.dilated:
+            f = F.relu(self.finaldeconv1(d1))
+            f = F.relu(self.finalconv2(f))
+        else:
+            f = F.leaky_relu(self.finaldeconv1(self.finaldrop1(d1)), 0.01)
+            f = F.leaky_relu(self.finalconv2(f), 0.01)
         return float_logits(self.finalconv3(f))
+
+
+def DilatedLinkNet34(num_classes: int = 1, num_channels: int = 3) -> LinkNet34:
+    """reference dilated_linknet.py:42-99, as segtpu fixes it (module docstring)."""
+    return LinkNet34(num_classes=num_classes, num_channels=num_channels, plain_bn=True,
+                     dilated=True)

@@ -61,7 +61,9 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
 # BatchNorm and InPlaceABN layers of each model of the registry
 NORM_LAYERS = {"linknet34": (36, 12), "unet": (18, 0), "unet_abn": (0, 18), "zf_unet": (22, 0),
                "unet11": (0, 0), "unet16": (0, 0), "albunet": (36, 0), "tiramisu57": (49, 0),
-               "tiramisu67": (60, 0), "tiramisu103": (96, 0)}
+               "tiramisu67": (60, 0), "tiramisu103": (96, 0), "dilated_linknet34": (48, 0),
+               "gcn": (155, 0), "gcn34": (36, 0), "psp_net": (109, 0), "duc": (156, 0),
+               "duc_dc": (156, 0), "linknext": (45, 0), "squeezenet": (0, 0)}
 
 
 def step_norm_shapes(batch: int = BATCH, patch: int = PATCH, device="cuda",

@@ -59,14 +59,16 @@ def test_state_dict_from_jax_equals_export_state_dict(linknet):
         np.testing.assert_array_equal(ours[k].numpy(), v, err_msg=k)
 
 
+# segtpu's WiderResNet (models/wider_resnet.py), which segtpu's registry does
+# not name, is the one model of segtpu that the port lacks.
 def test_state_dict_from_jax_rejects_unported_model():
     with pytest.raises(ValueError, match="not yet ported"):
-        state_dict_from_jax("psp_net", {}, {})
+        state_dict_from_jax("wider_resnet", {}, {})
 
 
 def test_get_model_rejects_unported_model():
     with pytest.raises(ValueError, match="not yet ported"):
-        get_model("psp_net", device="cpu")
+        get_model("wider_resnet", device="cpu")
 
 
 def test_get_model_without_device_raises_on_cpu_only_host(monkeypatch):

@@ -2,9 +2,10 @@
 
 The CUDA kernel of ``csrc/abn_norm_act.cu`` runs only on the card; its launch
 plan is computed in Python and is checked here on the CPU, at every B2 input
-shape of one training step of each model that ``chip_smoke.py`` trains
-(recorded by ``profile_reduce.step_norm_shapes``' hooks and written out as
-literals), at the twelve decoder shapes of a serving pass, and at odd shapes
+shape of one training step of each model that ``chip_smoke.py`` trains,
+the model zoo's included (recorded by ``profile_reduce.step_norm_shapes``'
+hooks and written out as literals; PSPNet's pyramid normalises 8 to 288
+rows), at the twelve decoder shapes of a serving pass, and at odd shapes
 (C = 37, C = 4 mod 8, a ragged M), in fp32 and bf16, aligned and unaligned,
 for cards of 132 and 114 SMs:
 
@@ -59,8 +60,20 @@ STEP_SHAPES = {
         32: (240, 252, 264, 276, 288, 336, 348, 360, 372),
         16: (288, 300, 312, 324)}),
     "albunet": _shapes(16, {256: (64,), 128: (64,), 64: (128,), 32: (256,), 16: (512,)}),
+    # the model zoo's BatchNorms: batch 16, or 8 over ResNet-101/152
+    "dilated_linknet34": _shapes(16, {256: (16, 64), 128: (16, 32, 64),
+                                      64: (32, 64, 128, 256, 512)}),
+    "gcn34": _shapes(16, {256: (64,), 128: (64,), 64: (128,), 32: (256,), 16: (512,)}),
+    "linknext": _shapes(16, {512: (64,), 256: (64, 128, 256), 128: (128, 256, 512),
+                             64: (256, 512, 1024), 32: (512, 1024, 2048)}),
+    "gcn": _shapes(8, {256: (64,), 128: (64, 128, 256), 64: (128, 256, 512),
+                       32: (256, 512, 1024), 16: (512, 2048)}),
+    # the pyramid's BatchNorms over 8, 32, 72 and 288 rows
+    "psp_net": _shapes(8, {256: (64,), 128: (64, 128, 256), 64: (128, 256, 512, 1024, 2048),
+                           6: (512,), 3: (512,), 2: (512,), 1: (512,)}),
+    "duc": _shapes(8, {256: (64,), 128: (64, 128, 256), 64: (64, 128, 256, 512, 1024, 2048)}),
 }
-assert [len(v) for v in STEP_SHAPES.values()] == [13, 6, 8, 60, 49, 5]
+assert [len(v) for v in STEP_SHAPES.values()] == [13, 6, 8, 60, 49, 5, 10, 5, 13, 12, 13, 10]
 # The twelve InPlaceABN inputs of one LinkNet34 serving pass (tile batch 64).
 SERVE_SHAPES = [(64, c, s, s) for c, s in ((128, 16), (128, 32), (256, 32), (64, 32),
                                            (64, 64), (128, 64), (32, 64), (32, 128),
@@ -300,7 +313,9 @@ EMU_CASES = [((3, 37, 19, 23), "channels_last"), ((3, 37, 19, 23), "nchw"),
              ((5, 12, 7, 9), "channels_last"), ((3, 268, 5, 7), "channels_last"),
              ((1499, 37), "mc"), ((1501, 12), "mc"), ((2, 1024, 3, 5), "channels_last"),
              ((3, 600, 2, 3), "channels_last"), ((2, 24, 17, 9), "nchw"),
-             ((2, 3, 8, 8), "nchw")]
+             ((2, 3, 8, 8), "nchw"), ((8, 512, 1, 1), "channels_last"),
+             ((8, 512, 2, 2), "channels_last"), ((8, 512, 3, 3), "channels_last"),
+             ((8, 512, 6, 6), "channels_last"), ((8, 512, 1, 1), "nchw")]
 
 
 @pytest.mark.parametrize("sms", [132, 114, 2], ids=["sms132", "sms114", "sms2"])

@@ -3,7 +3,8 @@
 The CUDA kernels of ``csrc/channel_reduce.cuh`` run only on the card; their
 launch plan is computed in Python and is checked here on the CPU, at every
 BatchNorm and InPlaceABN input shape of one LinkNet34 training step (batch
-16, patch 512) and at the odd shapes that ``chip_smoke.py`` holds the kernels
+16, patch 512), at the model zoo's BatchNorm shapes (PSPNet's pyramid at 8
+to 288 rows among them) and at the odd shapes that ``chip_smoke.py`` holds the kernels
 to, in fp32 and bf16, channels_last and NCHW, for cards of 132 and 114 SMs:
 
 * the plan covers every channel, and every row (or every vector of a
@@ -44,6 +45,19 @@ STEP_SHAPES = sorted({
     (16, 16, 128, 128), (16, 16, 256, 256), (16, 64, 256, 256),  # decoder1
 })
 assert len(STEP_SHAPES) == 13
+# The distinct BatchNorm inputs of the model zoo's steps that LinkNet34's
+# lacks (chip_smoke.py's batches: 16, or 8 over ResNet-101/152), PSPNet's
+# pyramid at 8 to 288 rows among them.
+ZOO_STEP_SHAPES = sorted({
+    (b, c, s, s) for b, by_side in (
+        (16, {256: (16,), 128: (16, 32), 64: (32, 256, 512)}),           # dilated_linknet34
+        (16, {512: (64,), 256: (128, 256), 128: (128, 256, 512),
+              64: (256, 512, 1024), 32: (512, 1024, 2048)}),           # linknext
+        (8, {256: (64,), 128: (64, 128, 256), 64: (64, 128, 256, 512, 1024, 2048),
+             32: (256, 512, 1024), 16: (512, 2048),
+             6: (512,), 3: (512,), 2: (512,), 1: (512,)}))                # gcn, psp_net, duc
+    for s, channels in by_side.items() for c in channels} - set(STEP_SHAPES))
+assert len(ZOO_STEP_SHAPES) == 31
 
 
 def _inner(shape, layout):
@@ -56,7 +70,8 @@ def _inner(shape, layout):
 
 # (shape, layout, aligned): the step's shapes in both layouts, then the odd
 # cases of chip_smoke.py (C = 37, [M, C] with a ragged M, unaligned views).
-CASES = ([(s, lay, True) for s in STEP_SHAPES for lay in ("channels_last", "nchw")]
+CASES = ([(s, lay, True) for s in STEP_SHAPES + ZOO_STEP_SHAPES
+          for lay in ("channels_last", "nchw")]
          + [((3, 37, 19, 23), "channels_last", True), ((3, 37, 19, 23), "nchw", True),
             ((1500, 48), "mc", True), ((1499, 37), "mc", True),
             ((2, 24, 17, 9), "nchw", False), ((2, 24, 17, 9), "channels_last", False)])
@@ -285,7 +300,10 @@ EMU_CASES = [((3, 37, 19, 23), "channels_last", True), ((3, 37, 19, 23), "nchw",
              ((1500, 48), "mc", True), ((1499, 37), "mc", True),
              ((2, 24, 17, 9), "nchw", False), ((2, 64, 32, 32), "nchw", True),
              ((1, 2, 256, 256), "nchw", True),
-             ((4, 16, 64, 64), "channels_last", True), ((2, 512, 8, 8), "channels_last", True)]
+             ((4, 16, 64, 64), "channels_last", True), ((2, 512, 8, 8), "channels_last", True),
+             ((8, 512, 1, 1), "channels_last", True), ((8, 512, 2, 2), "channels_last", True),
+             ((8, 512, 3, 3), "channels_last", True), ((8, 512, 6, 6), "channels_last", True),
+             ((8, 512, 1, 1), "nchw", True)]
 
 
 def _input(rng, shape, dtype, mean, std):

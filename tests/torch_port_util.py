@@ -2,8 +2,10 @@
 randomised normalisation parameters and running statistics, and the port's
 LinkNet34 carrying the same weights; seeded segtpu trees of any module;
 NHWC <-> NCHW; a gradient-recording optax SGD and the per-tensor gradient
-error."""
+error; the eval and train-mode forward comparison of a segtpu module and
+its port (``_compare``)."""
 
+import copy
 import math
 
 import numpy as np
@@ -15,7 +17,7 @@ import jax.numpy as jnp
 
 from segtpu.models import get_model as jax_get_model
 
-from segtpu_torch.compat.jax_params import state_dict_from_jax
+from segtpu_torch.compat.jax_params import state_dict_from_entries, state_dict_from_jax
 from segtpu_torch.models import get_model
 
 
@@ -95,7 +97,7 @@ def _jax_variables(module, shape, seed=0):
 
 def _no_dropout(model):
     for m in model.modules():
-        if isinstance(m, torch.nn.Dropout2d):
+        if isinstance(m, (torch.nn.Dropout, torch.nn.Dropout2d)):
             m.p = 0.0
     return model
 
@@ -115,3 +117,76 @@ def _grad_errors(got, want, floor):
     """Per tensor: max |got - want| over max(max |want|, floor)."""
     return sorted(float(np.abs(got[n] - w).max()) / max(float(np.abs(w).max()), floor)
                   for n, w in want.items())
+
+
+ATOL = 3e-4
+
+
+def _segtpu_forwards(module, variables, x):
+    """segtpu's eval output, train-mode output and updated batch_stats."""
+    want_eval = jax.jit(lambda v, x: module.apply(v, x, train=False))(variables, x)
+    want_train, updates = jax.jit(lambda v, x: module.apply(v, x, train=True,
+                                                            mutable=["batch_stats"]))(variables, x)
+    return want_eval, want_train, _numpy_dicts(updates.get("batch_stats", {}))
+
+
+def _as_tuple(t):
+    return t if isinstance(t, tuple) else (t,)
+
+
+def _assert_outputs(got, want, atol):
+    got, want = _as_tuple(got), _as_tuple(want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == (w.shape[0], w.shape[3], w.shape[1], w.shape[2])
+        np.testing.assert_allclose(_nhwc(g), np.asarray(w), atol=atol, rtol=0)
+
+
+def _compare(module, model, entries, x, n_stats, atol=ATOL, f64=False):
+    """segtpu's ``module`` and the port's ``model`` on ``x`` (NHWC numpy)
+    with segtpu's seeded weights: the eval outputs, the train-mode outputs
+    and every running statistic after the training forward, to ``atol``.
+    Outputs may be a tuple. ``n_stats``: the BatchNorms in the mapping.
+    ``f64``: the reference is segtpu run in float64 (``jax.enable_x64``),
+    for modules where segtpu's own fp32 run strays further from it than
+    the port's: checked here on the train-mode outputs. A float64 copy of
+    the port meets it to 1e-7 (segtpu rounds a model's logits to fp32 at
+    the end)."""
+    params, stats = _jax_variables(module, (1,) + x.shape[1:])
+    sd = state_dict_from_entries(entries, params, stats)
+    model.load_state_dict(sd, strict=False)
+    missing = {k for k in model.state_dict() if k not in sd}
+    assert not missing, sorted(missing)[:5]
+    variables = {"params": params, "batch_stats": stats}
+    _no_dropout(model)
+    if f64:
+        with jax.enable_x64():
+            to64 = lambda t: jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), t)
+            want_eval, want_train, new_stats = _segtpu_forwards(
+                module, to64(variables), jnp.asarray(x, jnp.float64))
+        model64 = copy.deepcopy(model).double()
+        with torch.no_grad():
+            _assert_outputs(model64.eval()(_nchw(x).double()), want_eval, 1e-7)
+            _assert_outputs(model64.train()(_nchw(x).double()), want_train, 1e-7)
+    else:
+        want_eval, want_train, new_stats = _segtpu_forwards(module, variables, jnp.asarray(x))
+    want_state = state_dict_from_entries(entries, params, new_stats)
+    with torch.no_grad():
+        _assert_outputs(model.eval()(_nchw(x)), want_eval, atol)
+        got_train = model.train()(_nchw(x))
+        _assert_outputs(got_train, want_train, atol)
+    if f64:
+        segtpu_train = _segtpu_forwards(module, variables, jnp.asarray(x))[1]
+
+        def worst(outputs):
+            return max(float(np.abs(np.asarray(o, np.float64) - np.asarray(w)).max())
+                       for o, w in zip(_as_tuple(outputs), _as_tuple(want_train)))
+        assert worst(tuple(_nhwc(g) for g in _as_tuple(got_train))) <= worst(segtpu_train)
+    got_state = model.state_dict()
+    checked = 0
+    for key, w in want_state.items():
+        if key.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(got_state[key].numpy(), w.numpy(), atol=atol, rtol=1e-5,
+                                       err_msg=key)
+            checked += 1
+    assert checked == 2 * n_stats
