@@ -5,8 +5,8 @@
 Phases, one JSON line each; any failure exits non-zero:
 
   device       the card (nvidia-smi name and power limit), torch and CUDA versions,
-               and which of pandas, tqdm, tensorboardX, cv2, sklearn and ninja
-               the machine can import
+               and which of pandas, tqdm, tensorboardX, cv2, sklearn, ninja
+               and matplotlib the machine can import
   build        nvcc build of every CUDA kernel of segtpu_torch/csrc, in seconds,
                and each kernel's registers and spills from ptxas -v
   kernel_b1    the channel-sums kernel against its plain PyTorch version
@@ -20,7 +20,12 @@ Phases, one JSON line each; any failure exits non-zero:
                and a model of its time per step of each model: each of those
                times its calls per step (84, 44, 18, 72, 120, 98), against
                their summed bound (var_mean's sum over the single-form calls
-               beside it); tiramisu57's calls that take the scalar-load plan
+               beside it); at every timed shape and per modelled step also
+               one PyTorch call for each form, checked against B1's sums
+               by B1's gate first and reported, not gated:
+               torch.batch_norm_stats beside var_mean for the single form,
+               torch.batch_norm_backward_reduce (mean 0, invstd 1: its
+               sum_dy and sum_dy_xmu) for the pair form; tiramisu57's calls that take the scalar-load plan
                (C not a multiple of 8) apart; and two calls giving the same
                bits at the largest and the smallest step shape; and in fp32
                channels_last, both forms at every BatchNorm and InPlaceABN
@@ -142,6 +147,10 @@ Phases, one JSON line each; any failure exits non-zero:
                DilatedLinkNet34 over one seeded 5000x5000 image (patch 512,
                tile batch 64, D4 TTA, bf16): s/image, a 0/255 mask, no
                kernel of this repo (eval-mode BatchNorm is F.batch_norm)
+  wider_resnet one fp32 SGD step (cross-entropy, 10 classes) of
+               WideResNet-28-10 at 128x3x32x32, seeded, card (TF32 off)
+               against the CPU and float64 by train_parity's gates;
+               launches (50, 25, 0), its 25 BatchNorms
   train_cli    the train CLI in process, in a temporary directory, three runs:
                (a) -d shapes-device -b 16 -p 512 --bf16 -o adam -e 2 (64 train
                steps and 8 validation batches an epoch), (b) -e 3 -r on the
@@ -164,6 +173,24 @@ Phases, one JSON line each; any failure exits non-zero:
   train_cli_albunet  the train CLI's albunet --freeze-encoder -d shapes-device
                -s 2 -e 1 at batch 16, patch 512, bf16, Adam: launches 2 x (72,
                36, 0); the last .pth holds the encoder as initialised
+  augment_parity  every op and the three pipelines of
+               segtpu_torch.augment.device on the card against the CPU, the
+               same parameters on 16x3x512x512 fp32 0-255 pixels: bit-equal
+               flips, rot90, transpose, crops, invert, grayscale, normalize
+               and the shapes pipeline; warps 1e-2 on the 0-255 scale (masks
+               1e-2/255, binarised masks differing only within 1e-3 of the
+               threshold); brightness, contrast, saturation, filter 1e-4;
+               HSV 1e-3; CLAHE at most 1 grey level on 0.1% of pixels; each
+               pipeline's device ms per batch beside the train phase's
+               LinkNet34 step; no kernel of this repo launched
+  train_cli_device_augs  the train CLI's -d shapes --device-augs (linknet34,
+               batch 16, patch 512, bf16, Adam, -s 8): 2 epochs; 1 epoch in a
+               new directory, then -r -e 2 there, whose epoch draws the
+               unbroken run's second epoch (each step's generator seed, the
+               sums of the augmented batches); launches per step the layer
+               count, host waits per train epoch, losses finite and falling
+  lr_finder    python -m segtpu_torch.lr_finder -m linknet34 -d shapes-device
+               (batch 16, patch 512, Adam): 30 finite losses and the PNG
   train_nuclei the accuracy A/B of python -m segtpu_torch.ab_nuclei: the
                seeded nuclei fixture (48 images) in the DSB2018 layout, the
                train CLI's -d dsb2018 legs at patch 128, batch 8, fp32, 10
@@ -181,6 +208,10 @@ Phases, one JSON line each; any failure exits non-zero:
                linknet34's first leg again, and whether their losses and
                val IoU repeat the leg's bits. --ab-out writes comparison.md
                and the port's CSVs
+  train_nuclei_device_augs  the nuclei fixture's -d dsb2018 (linknet34,
+               patch 128, batch 8, fp32, Adam lr 1e-4): 2 epochs with the
+               host augmentations and 2 with --device-augs, images/s of
+               each; then the resumed run's draws, as train_cli_device_augs
   counters     after training, every cached counter buffer of the B1/B3
                reduction holds zeros
   one_launch   a torch.profiler count: one call of B1 (either form), B2 or
@@ -193,8 +224,9 @@ Phases, one JSON line each; any failure exits non-zero:
 The kernel counts are set to 0 just before each main path (serve, train,
 train_zf_unet, train_unet_abn, train_tiramisu67, train_albunet,
 train_unet11, each train_zoo model's timed steps, train_cli_psp_net,
-serve_zoo, each train_cli run, train_ab_cli, train_cli_albunet, each
-train_nuclei leg) and read
+serve_zoo, wider_resnet's card step, each train_cli run, train_ab_cli,
+train_cli_albunet, each train_cli_device_augs run, each train_nuclei leg,
+each train_nuclei_device_augs run) and read
 just after it. Then the kernel table line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from a seed,
 with the normalisation statistics set from one calibration batch so that every
@@ -298,16 +330,18 @@ CLI_STEPS, CLI_VAL_BATCHES = 1024 // TRAIN_BATCH, 128 // TRAIN_BATCH
 # The main paths, and those that run each kernel. train_unet11 runs none:
 # TernausNet has no normalisation layer.
 PATHS = ("serve", "train", "train_zf_unet", "train_unet_abn", "train_tiramisu67", "train_albunet",
-         "train_unet11", "train_zoo", "train_cli_psp_net", "serve_zoo", "train_cli",
-         "train_ab_cli", "train_cli_albunet", "train_nuclei")
+         "train_unet11", "train_zoo", "train_cli_psp_net", "serve_zoo", "wider_resnet",
+         "train_cli", "train_ab_cli", "train_cli_albunet", "train_cli_device_augs",
+         "train_nuclei", "train_nuclei_device_augs")
 BN_PATHS = ("train_zf_unet", "train_tiramisu67", "train_albunet", "train_zoo",
-            "train_cli_psp_net", "train_cli_albunet")
-ABN_PATHS = ("train", "train_unet_abn", "train_cli", "train_ab_cli", "train_nuclei")
+            "train_cli_psp_net", "train_cli_albunet", "wider_resnet")
+ABN_PATHS = ("train", "train_unet_abn", "train_cli", "train_ab_cli", "train_nuclei",
+             "train_cli_device_augs", "train_nuclei_device_augs")
 KERNEL_PATHS = {
     "channel_sums": ABN_PATHS + BN_PATHS,
     "abn_norm_act": ("serve",) + ABN_PATHS + BN_PATHS,
     "abn_bwd": ABN_PATHS}
-OPTIONAL_PACKAGES = ("pandas", "tqdm", "tensorboardX", "cv2", "sklearn", "ninja")
+OPTIONAL_PACKAGES = ("pandas", "tqdm", "tensorboardX", "cv2", "sklearn", "ninja", "matplotlib")
 # Channel sums of fp32 terms, added in two orders: |err| <= RTOL_SUM * sum |term|.
 RTOL_SUM = 1e-5
 
@@ -580,17 +614,24 @@ def check_one_launch(what, fns):
 def time_shapes(card, keys, make, time_kernel, time_plain, time_library, bytes_of, ops_of, flush):
     """Each distinct call (shape, form) of ``keys`` timed once, cold in L2
     (medians of 20): ``{(shape, form): row}``. ``make(shape, form)`` gives
-    the inputs of ``time_*(inputs, form)``."""
+    the inputs of ``time_*(inputs, form)``. ``time_library`` returns None,
+    a call, or ``{name: call}`` of several PyTorch calls: then each is timed
+    (``library_ms_by_call``) and ``library_ms`` is the first's."""
     rows = {}
     for shape, form in sorted(keys):
         inputs = make(shape, form)
         n, c = int(np.prod(shape)), shape[1]
         lib = time_library(inputs, form)
-        rows[(shape, form)] = dict(shape=list(shape), form=form, **timing_entry(
+        calls = lib if isinstance(lib, dict) else ({} if lib is None else {"library": lib})
+        by_call = {name: cuda_ms(fn, flush=flush) for name, fn in calls.items()}
+        row = dict(shape=list(shape), form=form, **timing_entry(
             bytes_of(n, c, form), ops_of(n, form), card,
             ms=cuda_ms(lambda: time_kernel(inputs, form), flush=flush),
             plain_ms=cuda_ms(lambda: time_plain(inputs, form), flush=flush),
-            library_ms=None if lib is None else cuda_ms(lib, flush=flush)))
+            library_ms=next(iter(by_call.values()), None)))
+        if isinstance(lib, dict):
+            row["library_ms_by_call"] = by_call
+        rows[(shape, form)] = row
         del inputs
     return rows
 
@@ -607,6 +648,16 @@ def step_sum(timed, calls):
     for key, name in (("ms", "ms_modelled_cold"), ("plain_ms", "plain_ms_modelled_cold"),
                       ("bound_ms", "bound_ms_modelled"), ("bytes", "bytes_modelled")):
         total[name] = sum(r["calls"] * r[key] for r in rows)
+    by_call = {}
+    for r in rows:
+        for name, ms in r.get("library_ms_by_call", {}).items():
+            sums = by_call.setdefault(name, dict(calls=0, library_ms_modelled_cold=0.0,
+                                                 ms_modelled_cold=0.0))
+            sums["calls"] += r["calls"]
+            sums["library_ms_modelled_cold"] += r["calls"] * ms
+            sums["ms_modelled_cold"] += r["calls"] * r["ms"]
+    if by_call:
+        total["library_by_call_modelled_cold"] = by_call
     with_lib = [r for r in rows if r["library_ms"] is not None]
     if with_lib:
         total["library_ms_modelled_cold"] = sum(r["calls"] * r["library_ms"] for r in with_lib)
@@ -656,6 +707,35 @@ def by_model_largest(norm_shapes, kinds, timing):
     return out
 
 
+BN_STATS_EPS = 1e-5
+
+
+def b1_library_calls(a, b, form):
+    """The one-call PyTorch counterparts of B1, checked against B1's sums by
+    B1's own gate first: for the pair form ``(sum a, sum a*b)``,
+    ``torch.batch_norm_backward_reduce(a, b, mean 0, invstd 1)`` (the
+    reduction torch's SyncBatchNorm backward runs: its ``sum_dy`` and
+    ``sum_dy_xmu``); for the single form ``torch.var_mean`` and
+    ``torch.batch_norm_stats`` (BatchNorm's own statistics kernel, whose
+    mean and invstd give the sums back). ``{name: call}``."""
+    c = a.shape[1]
+    want = kernels.channel_sums_cuda(a, b)
+    magnitude = channel_sums_plain(a.abs(), None if b is None else b.abs())
+    what = f"{a.dtype} {tuple(a.shape)}"
+    if form == "pair":
+        zero = torch.zeros(c, device=a.device)
+        one = torch.ones(c, device=a.device)
+        reduce = lambda: torch.batch_norm_backward_reduce(a, b, zero, one, None, True, False, False)
+        _check_sums("batch_norm_backward_reduce", reduce()[:2], want, magnitude, what)
+        return {"batch_norm_backward_reduce": reduce}
+    n = a.numel() // c
+    mean, invstd = torch.batch_norm_stats(a, BN_STATS_EPS)
+    sums = (mean * n, n * (invstd.double().pow(-2) - BN_STATS_EPS + mean.double() ** 2))
+    _check_sums("batch_norm_stats", sums, want, magnitude, what)
+    return {"var_mean": lambda: torch.var_mean(a, dim=(0, 2, 3), correction=0),
+            "batch_norm_stats": lambda: torch.batch_norm_stats(a, BN_STATS_EPS)}
+
+
 def phase_kernel_b1(card: str, norm_shapes, fp32_shapes, zoo_shapes):
     """B1 against its plain version, then its time at the largest shapes of
     the training steps. ``norm_shapes``: model -> :func:`step_norm_shapes`
@@ -697,15 +777,20 @@ def phase_kernel_b1(card: str, norm_shapes, fp32_shapes, zoo_shapes):
         a = cuda_input(shape, torch.bfloat16, "channels_last", g)
         b = cuda_input(shape, torch.bfloat16, "channels_last", g, 0.0, 1.0)
         n, c = a.numel(), shape[1]
-        return dict(shape=list(shape), dtype="bfloat16", layout="channels_last", single=timing_entry(
+        single_lib = b1_library_calls(a, None, "single")
+        pair_lib = b1_library_calls(a, b, "pair")
+        single = timing_entry(
             n * 2 + 2 * 4 * c, 3 * n, card,
             ms=cuda_ms(lambda: kernels.channel_sums_cuda(a)),
             plain_ms=cuda_ms(lambda: channel_sums_plain(a)),
-            library_ms=cuda_ms(lambda: torch.var_mean(a, dim=(0, 2, 3), correction=0))),
-            pair=timing_entry(
+            library_ms=cuda_ms(single_lib["var_mean"]))
+        single["library_ms_batch_norm_stats"] = cuda_ms(single_lib["batch_norm_stats"])
+        return dict(shape=list(shape), dtype="bfloat16", layout="channels_last", single=single,
+                    pair=timing_entry(
             2 * n * 2 + 2 * 4 * c, 3 * n, card,
             ms=cuda_ms(lambda: kernels.channel_sums_cuda(a, b)),
-            plain_ms=cuda_ms(lambda: channel_sums_plain(a, b)), library_ms=None))
+            plain_ms=cuda_ms(lambda: channel_sums_plain(a, b)),
+            library_ms=cuda_ms(pair_lib["batch_norm_backward_reduce"])))
 
     big, small = _largest(unique), min(unique, key=lambda s: int(np.prod(s)))
     largest_by_model = by_model_largest(norm_shapes, ("bn", "abn"), largest_timing)
@@ -742,8 +827,7 @@ def phase_kernel_b1(card: str, norm_shapes, fp32_shapes, zoo_shapes):
         card, set().union(*calls.values()), make,
         lambda xy, form: kernels.channel_sums_cuda(*xy),
         lambda xy, form: channel_sums_plain(*xy),
-        lambda xy, form: None if form == "pair" else (
-            lambda: torch.var_mean(xy[0], dim=(0, 2, 3), correction=0)),
+        lambda xy, form: b1_library_calls(*xy, form),
         lambda n, c, form: (2 if form == "pair" else 1) * n * 2 + 2 * 4 * c,
         lambda n, form: 3 * n, flush)
     del flush
@@ -756,6 +840,21 @@ def phase_kernel_b1(card: str, norm_shapes, fp32_shapes, zoo_shapes):
                                  f"{MODEL_STEP_LAUNCHES[model]['channel_sums']}")
     beats = {"x".join(map(str, r["shape"])): r["ms"] < r["library_ms"]
              for r in timed.values() if r["form"] == "single"}
+    # reported, not gated: B1 against each one-call counterpart, per shape
+    # (kernel ms over library ms) and per modelled step
+    versus_library = {
+        name: dict(per_shape={f"{'x'.join(map(str, r['shape']))} {r['form']}":
+                              r["ms"] / r["library_ms_by_call"][name]
+                              for r in timed.values() if name in r["library_ms_by_call"]},
+                   per_step={m: s["library_by_call_modelled_cold"][name]
+                             for m, s in per_step.items()
+                             if name in s.get("library_by_call_modelled_cold", {})})
+        for name in ("batch_norm_backward_reduce", "var_mean", "batch_norm_stats")}
+    for entry in versus_library.values():
+        entry["slower_shapes"] = {k: v for k, v in entry["per_shape"].items() if v >= 1.0}
+        entry["slower_steps"] = {m: s["ms_modelled_cold"] / s["library_ms_modelled_cold"]
+                                 for m, s in entry["per_step"].items()
+                                 if s["ms_modelled_cold"] >= s["library_ms_modelled_cold"]}
     # the calls whose plan reads one element per load (C not a multiple of 8)
     sms = kernels.sm_count(torch.device("cuda"))
     scalar = [dict(r, calls_per_step=calls["tiramisu57"][key]) for key, r in sorted(timed.items())
@@ -774,12 +873,15 @@ def phase_kernel_b1(card: str, norm_shapes, fp32_shapes, zoo_shapes):
          largest=largest, largest_by_model=largest_by_model,
          zoo_largest_by_model=zoo_largest_by_model, scalar_loads=scalar_path,
          per_step=per_step, per_shape=per_shape, beats_var_mean_single=beats,
+         versus_library=versus_library,
          repeat_bit_identical=repeat,
          timing="device time (a spin kernel ahead of each run); largest: warm medians of "
                 "20; per_shape: medians of 20 with L2 flushed before each run; per_step: "
                 "each per_shape time times its calls per step",
-         library="torch.var_mean(x, dim=(0, 2, 3), correction=0) for the single form; "
-                 "none for the pair form")
+         library="single form: torch.var_mean(x, dim=(0, 2, 3), correction=0) (library_ms) "
+                 "and torch.batch_norm_stats(x, 1e-5); pair form: "
+                 "torch.batch_norm_backward_reduce(g, x, mean 0, invstd 1, None, True, False, "
+                 "False); each checked against B1's sums by B1's gate before it is timed")
     return dict(largest["single"], shape=list(big), pair=largest["pair"],
                 largest_by_model=largest_by_model, zoo_largest_by_model=zoo_largest_by_model,
                 scalar_loads=scalar_path, per_step=per_step), max_err
@@ -2131,6 +2233,337 @@ def repeat_leg(leg: dict, exp_dir: Path, epochs: int = 2) -> dict:
     return dict(run=leg["run"], epochs=epochs, same_bits=first == again, leg=first, again=again)
 
 
+# --device-augs (segtpu_torch.augment.device): augment_parity's batch, the
+# train CLI's runs on raw SHAPES and the nuclei fixture.
+AUG_BATCH = 16
+AUG_STEPS = 8
+AUG_VAL_BATCHES = max(AUG_STEPS // 4, 1)
+# gates of augment_parity, the card against the CPU on the same parameters
+# (0-255 pixels): bit-equal; a warp (the coordinates go through cos and
+# sin, whose fp32 results differ by an ulp between the card and the CPU);
+# brightness, contrast, saturation, filter (a reduction's order); HSV
+AUG_TOL = {"exact": 0.0, "warp": 1e-2, "photometric": 1e-4, "hsv": 1e-3}
+
+
+def _to(params, device):
+    if isinstance(params, dict):
+        return {k: _to(v, device) for k, v in params.items()}
+    return params.to(device)
+
+
+def augment_cases(n, h, w):
+    """``(name, gate, draw(generator), apply(x, m, params) -> outputs)`` of
+    every op and pipeline of segtpu_torch.augment.device."""
+    from segtpu_torch.augment import device as A
+    fire = lambda g: A.draw_fire(g, n)
+    return [
+        ("vertical_flip", "exact", fire, A.vertical_flip),
+        ("horizontal_flip", "exact", fire, A.horizontal_flip),
+        ("transpose", "exact", fire, A.transpose),
+        ("rotate90", "exact", lambda g: A.draw_rotate90(g, n), A.rotate90),
+        ("crop", "exact", lambda g: A.draw_crop(g, n, h, w, h - 64),
+         lambda x, m, p: A.crop(x, m, p, h - 64)),
+        ("center_crop", "exact", lambda g: {}, lambda x, m, p: A.center_crop(x, m, h - 64)),
+        ("invert", "exact", fire, lambda x, m, p: (A.invert(x, p),)),
+        ("grayscale", "exact", fire, lambda x, m, p: (A.grayscale(x, p),)),
+        ("normalize", "exact", lambda g: {}, lambda x, m, p: (A.normalize(x), A.make_binary(m))),
+        ("shift_scale_rotate", "warp",
+         lambda g: A.draw_shift_scale_rotate(g, n, h, w, prob=1.0), A.shift_scale_rotate),
+        ("rotate", "warp", lambda g: A.draw_shift_scale_rotate(
+            g, n, h, w, shift_limit=0.0, scale_limit=0.0, rotate_limit=90.0, prob=1.0),
+         A.shift_scale_rotate),
+        ("shift", "warp", lambda g: A.draw_shift(g, n, prob=1.0), A.shift),
+        ("shift_scale", "warp", lambda g: A.draw_shift_scale(g, n, w, prob=1.0), A.shift_scale),
+        ("brightness", "photometric", lambda g: A.draw_alpha(g, n, 0.9, 1.1, prob=1.0),
+         lambda x, m, p: (A.brightness(x, p),)),
+        ("contrast", "photometric", lambda g: A.draw_alpha(g, n, 0.9, 1.1, prob=1.0),
+         lambda x, m, p: (A.contrast(x, p),)),
+        ("saturation", "photometric", lambda g: A.draw_alpha(g, n, 0.7, 1.3, prob=1.0),
+         lambda x, m, p: (A.saturation(x, p),)),
+        ("filter", "photometric", lambda g: A.draw_alpha(g, n, 0.0, 0.5, prob=1.0, identity=0.0),
+         lambda x, m, p: (A.blur_filter(x, p),)),
+        ("hsv_shift", "hsv", lambda g: A.draw_hsv_shift(g, n, prob=1.0),
+         lambda x, m, p: (A.hsv_shift(x, p),)),
+        ("clahe", "clahe", lambda g: {}, lambda x, m, p: (A.clahe(x),)),
+        ("pipeline_shapes", "exact", lambda g: {},
+         lambda x, m, p: A.shapes_train_pipeline(None, x, m)),
+        ("pipeline_dsb2018", "warp", lambda g: A.dsb2018_draw(g, n, h, w), A.dsb2018_apply),
+        ("pipeline_inria", "warp", lambda g: A.inria_draw(g, n, h, w), A.inria_apply),
+    ]
+
+
+def _aug_error(name, gate, got, want, x_scale):
+    """The largest error of each output of one op, the card's against the
+    CPU's, on the 0-255 scale (``x_scale``: 255 x std where the op
+    normalises); a mask after a warp: binarised, a mismatch only where the
+    CPU's warped value lies within 1e-3 of the threshold. Raises where an
+    output is out of its gate."""
+    errs = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        a = a.cpu()
+        mask = i == 1
+        if gate == "clahe":
+            err = (a - b).abs()
+            share = float((err > 1e-3).float().mean())
+            errs.append(dict(max=float(err.max()), share_over_1e3=share))
+            if float(err.max()) > 1.0 or share > 1e-3:
+                raise AssertionError(f"augment_parity {name}: CLAHE off by {float(err.max())} "
+                                     f"on {share} of the pixels")
+            continue
+        if mask and name.startswith("pipeline_") and gate == "warp":
+            # binarised masks: compare with the CPU's soft mask kept by the caller
+            bad = int((a != b).sum())
+            errs.append(dict(mismatches=bad))
+            continue
+        scale = 1.0 if mask else x_scale
+        err = float(((a.double() - b.double()).abs() * scale).max())
+        limit = AUG_TOL[gate] * (1.0 / 255 if mask and gate == "warp" else 1.0)
+        errs.append(dict(max=err))
+        if err > limit or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"augment_parity {name} output {i}: error {err} > {limit}")
+    return errs
+
+
+def phase_augment_parity(step_ms: float):
+    """Every op and pipeline of the device augmentations on the card against
+    the CPU, the same parameters (drawn on the CPU) on the same 16x3x512^2
+    fp32 0-255 pixels and 0/1 masks, by AUG_TOL; then each pipeline's
+    device ms per batch (its draws and applies, medians of 20) beside the
+    LinkNet34 training step's ms (train phase). No kernel of this repo
+    runs."""
+    from segtpu_torch.augment import device as A
+    n, side = AUG_BATCH, PATCH
+    rng = np.random.default_rng(SEED + 60)
+    x = torch.from_numpy(rng.integers(0, 256, (n, 3, side, side)).astype(np.float32))
+    m = torch.from_numpy((rng.random((n, 1, side, side)) > 0.5).astype(np.float32))
+    xc = x.cuda().contiguous(memory_format=torch.channels_last)
+    mc = m.cuda().contiguous(memory_format=torch.channels_last)
+    g = torch.Generator().manual_seed(SEED + 61)
+    kernels.reset_launch_counts()
+    results = {}
+    for name, gate, draw, apply in augment_cases(n, side, side):
+        p = draw(g)
+        want = apply(x, m, p)
+        got = apply(xc, mc, _to(p, "cuda"))
+        torch.cuda.synchronize()
+        std = {"pipeline_dsb2018": A.IMAGENET_STD, "pipeline_inria": A.INRIA_STD,
+               "pipeline_shapes": A.IMAGENET_STD, "normalize": A.IMAGENET_STD}.get(name)
+        x_scale = 1.0 if std is None else 255.0 * float(max(std))
+        results[name] = dict(gate=gate, outputs=_aug_error(name, gate, got, want, x_scale))
+        if name in ("pipeline_dsb2018", "pipeline_inria"):
+            # the CPU's mask before binarisation: the pipeline with the threshold moved
+            soft = {"pipeline_dsb2018": _soft_dsb2018, "pipeline_inria": _soft_inria}[name](
+                A, x, m, p)
+            differ = got[1].cpu() != want[1]
+            near = soft.abs() <= 1e-3
+            bad = int((differ & ~near).sum())
+            results[name]["mask_mismatches_off_threshold"] = bad
+            results[name]["mask_mismatches_at_threshold"] = int((differ & near).sum())
+            if bad:
+                raise AssertionError(f"augment_parity {name}: {bad} mask pixels differ away "
+                                     "from the threshold")
+        del want, got
+    launches = kernels.launch_counts()
+    gc = torch.Generator(device="cuda").manual_seed(SEED + 62)
+    pipelines = {name: A.get_device_pipelines(name)[0] for name in ("shapes", "dsb2018", "inria")}
+    ms = {name: cuda_ms(lambda fn=fn: fn(gc, xc, mc)) for name, fn in pipelines.items()}
+    ok = launches == NO_LAUNCHES
+    emit("augment_parity", batch=[n, 3, side, side], ops=results, tolerance=AUG_TOL,
+         pipeline_ms_per_batch=ms, linknet34_step_ms=step_ms,
+         pipeline_share_of_step={k: v / step_ms for k, v in ms.items()},
+         kernel_launches=launches, ok=ok)
+    if not ok:
+        raise AssertionError(f"augment_parity: the augmentations launched {launches}")
+
+
+def _soft_dsb2018(A, x, m, p):
+    x = A.normalize(x)
+    x, m = A.rotate90(x, m, p["rotate90"])
+    x, m = A.vertical_flip(x, m, p["vflip"])
+    x, m = A.horizontal_flip(x, m, p["hflip"])
+    return A.shift_scale_rotate(x, m, p["ssr"])[1]
+
+
+def _soft_inria(A, x, m, p):
+    x, m = A.vertical_flip(x, m, p["vflip"])
+    x, m = A.horizontal_flip(x, m, p["hflip"])
+    return A.shift_scale_rotate(x, m, p["ssr"])[1]
+
+
+class AugmentRecorder:
+    """Wraps the train CLI's ``make_train_step`` so that each step's
+    augmentation records its generator's seed (host) and the sums of its
+    augmented images and masks (device, fetched after the run)."""
+
+    def __init__(self):
+        self.seeds, self.sums = [], []
+        self.real = train_cli.make_train_step
+
+    def __enter__(self):
+        def make(*args, augment_fn=None, **kwargs):
+            def augment(g, x, y):
+                self.seeds.append(g.initial_seed())
+                out = augment_fn(g, x, y)
+                self.sums.append(torch.stack([t.sum(dtype=torch.float64) for t in out]))
+                return out
+            return self.real(*args, augment_fn=augment if augment_fn else None, **kwargs)
+        train_cli.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        train_cli.make_train_step = self.real
+
+    def fetch(self):
+        return torch.stack(self.sums).cpu().tolist() if self.sums else []
+
+
+def phase_train_cli_device_augs(step_ms: float, tmpdir: Path):
+    """``-m linknet34 -d shapes --device-augs`` through the train CLI at
+    full width (batch 16, patch 512, bf16, Adam): (a) 2 epochs of 8 steps;
+    (b) 1 epoch in a new directory, then (c) ``-r -e 2`` there: its second
+    epoch must draw (a)'s: the same generator seed at each step and the
+    same sums of the augmented batches. Launches per step the layer count
+    (the augmentation adds none), the host's waits per train epoch at most
+    EPOCH_SYNCS, losses finite and (a)'s second epoch below its first."""
+    base = CLI_ARGS + ["-d", "shapes", "--device-augs", "-s", str(AUG_STEPS), "-w", "4"]
+    runs, launches, recorded = [], Counter(), {}
+    for label, exp, extra, epochs in (("a", "a", ["-e", "2"], 2), ("b", "b", ["-e", "1"], 1),
+                                      ("c", "b", ["-e", "2", "-r"], 1)):
+        with AugmentRecorder() as rec:
+            history, out = cli_run(label, base + extra + ["--experiments-dir", str(tmpdir / exp)],
+                                   epochs * AUG_STEPS, epochs * AUG_VAL_BATCHES, step_ms)
+        recorded[label] = (rec.seeds, rec.fetch())
+        out["augment_seeds"] = rec.seeds
+        runs.append(out)
+        launches.update(out["launches"])
+    a_seeds, a_sums = recorded["a"]
+    c_seeds, c_sums = recorded["c"]
+    repeats = c_seeds == a_seeds[AUG_STEPS:] and c_sums == a_sums[AUG_STEPS:]
+    falling = runs[0]["loss"][1] < runs[0]["loss"][0]
+    ok = repeats and falling and runs[2]["epochs"] == [0, 1]
+    emit("train_cli_device_augs", runs=runs, resumed_draws_repeat=repeats,
+         resumed_epoch_loss=runs[2]["loss"][-1], unbroken_epoch_loss=runs[0]["loss"][-1],
+         loss_falls=falling, launches=dict(launches), ok=bool(ok))
+    if not ok:
+        raise AssertionError("train_cli_device_augs checks failed")
+    return dict(launches)
+
+
+def phase_nuclei_device_augs(data_dir: Path, tmpdir: Path):
+    """``-d dsb2018`` on the nuclei fixture that train_nuclei wrote
+    (linknet34, bce_jaccard, Adam lr 1e-4, patch 128, batch 8, fp32): 2
+    epochs with the host augmentations, then 2 with ``--device-augs``, each
+    counted as a train_cli run, their images/s side by side; then 1 epoch
+    with ``--device-augs`` in a new directory and ``-r -e 2`` there, whose
+    second epoch must draw what the unbroken run drew (as
+    train_cli_device_augs)."""
+    train, valid, _ = get_dataset("dsb2018", str(data_dir), patch_size=ab_nuclei.PATCH)
+    per_epoch = len(train) // ab_nuclei.BATCH, len(valid) // ab_nuclei.BATCH
+    argv = ["-m", "linknet34", "-d", "dsb2018", "-dd", str(data_dir), "-p", str(ab_nuclei.PATCH),
+            "-b", str(ab_nuclei.BATCH), "-l", "bce_jaccard", "-o", "adam", "-lr", "1e-4",
+            "--seed", str(ab_nuclei.RUN_SEEDS[0]), "--no-tensorboard", "--light-logging"]
+    runs, launches, recorded = {}, Counter(), {}
+    for label, exp, extra, epochs in (
+            ("host", "host", ["-e", "2"], 2), ("device", "device", ["-e", "2", "--device-augs"], 2),
+            ("device_b", "device_b", ["-e", "1", "--device-augs"], 1),
+            ("device_resumed", "device_b", ["-e", "2", "-r", "--device-augs"], 1)):
+        with AugmentRecorder() as rec:
+            _, out = cli_run(f"nuclei_{label}", argv + extra + ["--experiments-dir",
+                                                                str(tmpdir / exp)],
+                             epochs * per_epoch[0], epochs * per_epoch[1], None,
+                             batch=ab_nuclei.BATCH)
+        recorded[label] = (rec.seeds, rec.fetch())
+        runs[label] = out
+        if label != "host":
+            launches.update(out["launches"])
+    seeds, sums = recorded["device"]
+    repeats = (recorded["device_resumed"] == (seeds[per_epoch[0]:], sums[per_epoch[0]:])
+               and len(set(seeds)) == len(seeds) == 2 * per_epoch[0])
+    rate = {k: runs[k]["images_per_s_train"] for k in ("host", "device")}
+    emit("train_nuclei_device_augs", train_set=len(train), valid_set=len(valid),
+         runs=list(runs.values()), images_per_s_train=rate,
+         device_over_host=rate["device"] / rate["host"], resumed_draws_repeat=repeats,
+         launches=dict(launches), ok=bool(repeats))
+    if not repeats:
+        raise AssertionError("train_nuclei_device_augs: the resumed run drew other augmentations")
+    return dict(launches)
+
+
+# WideResNet-28-10 (segtpu_torch.models.wider_resnet): 25 BatchNorms
+WRN_BATCH, WRN_SIDE = 128, 32
+WRN_LAUNCHES = step_launches(25, 0)
+
+
+def phase_wider_resnet():
+    """One fp32 SGD step (lr 0.01, cross-entropy over 10 classes) of
+    WideResNet(depth=28, widen_factor=10), seeded, at 128x3x32^2: the card
+    (TF32 off) against the CPU and the CPU in float64, by parity_verdict's
+    gates; launches per step (50, 25, 0)."""
+    from segtpu_torch.models import place_model
+    from segtpu_torch.models.wider_resnet import WideResNet
+
+    rng = np.random.default_rng(SEED + 70)
+    x = torch.from_numpy(rng.standard_normal((WRN_BATCH, 3, WRN_SIDE, WRN_SIDE),
+                                             dtype=np.float32))
+    labels = torch.from_numpy(rng.integers(0, 10, WRN_BATCH))
+    runs = {}
+    t0 = time.perf_counter()
+    with fp32_convolutions():
+        for key, device, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                                   ("cpu_f64", "cpu", torch.float64)):
+            model = WideResNet(depth=28, widen_factor=10)
+            layers_mod.reset_parameters(model, torch.Generator().manual_seed(SEED))
+            model = place_model(model, device).to(dtype)
+            step = make_train_step(model, get_optimizer("sgd", model.parameters(), PARITY_LR),
+                                   F.cross_entropy)
+            kernels.reset_launch_counts()
+            logs = step(x.to(device, dtype), labels.to(device), PARITY_LR)
+            launches = None
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = kernels.launch_counts()
+            runs[key] = (float(logs["loss"]),
+                         {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()},
+                         {k: v.detach().cpu() for k, v in model.state_dict().items()}, launches)
+            del model, step
+    fields, ok = parity_verdict(runs, WRN_LAUNCHES)
+    emit("wider_resnet", input=[WRN_BATCH, 3, WRN_SIDE, WRN_SIDE], depth=28, widen_factor=10,
+         lr=PARITY_LR, seconds=time.perf_counter() - t0, **fields, ok=ok)
+    if not ok:
+        raise AssertionError("wider_resnet failed")
+    return runs["card"][3]
+
+
+LR_FINDER_STEPS = 30
+
+
+def phase_lr_finder(tmpdir: Path):
+    """``python -m segtpu_torch.lr_finder`` as a user runs it: LinkNet34 on
+    shapes-device at batch 16, patch 512, bce_jaccard, Adam: 30 steps, then
+    the smoothed plot. Gates: 30 finite losses printed, a PNG written."""
+    out = tmpdir / "loss_plot.png"
+    cmd = [sys.executable, "-m", "segtpu_torch.lr_finder", "-m", "linknet34",
+           "-d", "shapes-device", "-l", "bce_jaccard", "-o", "adam", "-b", str(TRAIN_BATCH),
+           "-p", str(PATCH), "--out", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=Path(__file__).resolve().parent)
+    seconds = time.perf_counter() - t0
+    text = proc.stdout
+    body = text[text.find("losses"):text.find("saved")] if "losses" in text else ""
+    losses = [float(v) for v in re.findall(r"[-+]?(?:\d+\.\d*(?:e[-+]?\d+)?|nan|inf)",
+                                           body[len("losses"):])]
+    png = out.exists() and out.read_bytes()[:4] == b"\x89PNG"
+    ok = (proc.returncode == 0 and len(losses) == LR_FINDER_STEPS
+          and all(np.isfinite(losses)) and png)
+    emit("lr_finder", returncode=proc.returncode, seconds=seconds, steps=len(losses),
+         first_loss=losses[0] if losses else None, last_loss=losses[-1] if losses else None,
+         min_loss=min(losses) if losses else None, png_written=png,
+         stderr_tail=proc.stderr[-400:] if proc.returncode else "", ok=bool(ok))
+    if not ok:
+        raise AssertionError("lr_finder failed")
+
+
 def busy_share(trace_path: Path) -> dict:
     """The device's busy and idle share over a torch.profiler Chrome trace:
     the union of its kernels, copies and sets against the span of all its
@@ -2209,7 +2642,7 @@ def _per_step_entry(per_step):
     :func:`step_sum`): calls x cold time against calls x bound."""
     keys = ("calls_modelled", "ms_modelled_cold", "bound_ms_modelled", "plain_ms_modelled_cold",
             "library_ms_modelled_cold", "library_calls_modelled",
-            "ms_modelled_cold_of_library_calls")
+            "ms_modelled_cold_of_library_calls", "library_by_call_modelled_cold")
     return {model: {k: sums[k] for k in keys if k in sums} for model, sums in per_step.items()}
 
 
@@ -2257,13 +2690,23 @@ def main(argv=None) -> int:
         counts["train_cli_psp_net"] = phase_train_cli_psp_net(Path(tmp))
     counts["serve_zoo"] = phase_serve_zoo(smi)
     torch.cuda.empty_cache()
+    counts["wider_resnet"] = phase_wider_resnet()
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         counts["train_cli"] = phase_train_cli(step_ms, Path(tmp))
         counts["train_ab_cli"] = phase_train_ab_cli(step_ms, Path(tmp))
         counts["train_cli_albunet"] = phase_train_cli_albunet(albunet_ms, Path(tmp))
     torch.cuda.empty_cache()
+    phase_augment_parity(step_ms)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        counts["train_cli_device_augs"] = phase_train_cli_device_augs(step_ms, Path(tmp))
+        phase_lr_finder(Path(tmp))
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         counts["train_nuclei"] = phase_train_nuclei(card, Path(tmp), args.ab_out)
+        counts["train_nuclei_device_augs"] = phase_nuclei_device_augs(
+            Path(tmp) / "ab_nuclei" / "data" / "dsb2018", Path(tmp) / "nuclei_device_augs")
     counters = kernels.counter_buffers()
     if not counters or any(int(buf.count_nonzero()) for buf in counters):
         raise AssertionError("the B1/B3 counter buffers are not all zero after training: "
@@ -2281,7 +2724,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         kernel_entry("B1", "channel_sums", "segtpu/ops/bn_alt.py:100",
                      sum(by_path["channel_sums"].values()), b1_err, b1,
-                     form="single (sum x, sum x^2); library: torch.var_mean",
+                     form="single (sum x, sum x^2); library: torch.var_mean (single), "
+                          "torch.batch_norm_backward_reduce (pair)",
                      pair=b1["pair"], largest_by_model=b1["largest_by_model"],
                      zoo_largest_by_model=b1["zoo_largest_by_model"],
                      scalar_loads={k: v for k, v in b1["scalar_loads"].items() if k != "per_shape"},

@@ -2,8 +2,10 @@
 segtpu/augment/__init__.py; reference lib/augmentations.py:476-538).
 
 The batched TTA works on NCHW tensors (rotations over dims (2, 3), the
-horizontal flip over dim 3); ``pad_to_multiple``/``unpad`` work on host HWC
-arrays.
+horizontal flip over dim 3); the list forms ``tta_d4_aug``/``tta_d4_deaug``,
+``pad_to_multiple`` and ``unpad`` work on host HWC arrays. The training-time
+augmentations are in :mod:`segtpu_torch.augment.host` (per sample, on the
+host) and :mod:`segtpu_torch.augment.device` (batched, on the device).
 """
 
 from __future__ import annotations
@@ -11,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["tta_d4_aug_batch", "tta_d4_deaug_batch", "pad_to_multiple", "unpad"]
+__all__ = ["tta_d4_aug_batch", "tta_d4_deaug_batch", "tta_d4_aug", "tta_d4_deaug",
+           "pad_to_multiple", "unpad"]
 
 
 def _rot(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -46,6 +49,31 @@ def tta_d4_deaug_batch(x: torch.Tensor) -> torch.Tensor:
         _rot(g[:, 7].flip(3), -3),
     ]
     return sum(inv) * (1.0 / 8.0)
+
+
+def tta_d4_aug(images):
+    """List of HWC arrays -> the list of each one's 8 D4 transforms, in the
+    order of :func:`tta_d4_aug_batch` (reference tta_d4_aug, aug:476-491)."""
+    res = []
+    for image in images:
+        views = [image, np.rot90(image, 1), np.rot90(image, 2), np.rot90(image, 3)]
+        res.extend(views + [np.fliplr(v) for v in views])
+    return res
+
+
+def tta_d4_deaug(image_list):
+    """Inverse of :func:`tta_d4_aug`: each group of 8 transformed back and
+    averaged (reference tta_d4_deaug, aug:494-511)."""
+    if len(image_list) % 8 != 0:
+        raise ValueError(f"TTA list of {len(image_list)} is not a multiple of 8")
+    res = []
+    for i in range(0, len(image_list), 8):
+        g = image_list[i:i + 8]
+        res.append((g[0] + np.rot90(g[1], -1) + np.rot90(g[2], -2) + np.rot90(g[3], -3)
+                    + np.fliplr(g[4]) + np.rot90(np.fliplr(g[5]), -1)
+                    + np.rot90(np.fliplr(g[6]), -2) + np.rot90(np.fliplr(g[7]), -3))
+                   * (1.0 / 8.0))
+    return res
 
 
 def pad_to_multiple(image: np.ndarray, pad_size: int):

@@ -6,8 +6,9 @@ segtpu keeps a model's weights as two nested dicts, ``params`` and
 nested dicts of numpy arrays and returns tensors under the reference's
 state_dict keys, which are the port's module names, so
 ``model.load_state_dict`` takes the result directly. Rules: conv HWIO ->
-OIHW; deconv HWOI -> (in, out, kh, kw) (the same transpose); BN/ABN
-scale/bias/mean/var -> weight/bias/running_mean/running_var.
+OIHW; deconv HWOI -> (in, out, kh, kw) (the same transpose); dense
+(in, out) -> linear (out, in); BN/ABN scale/bias/mean/var ->
+weight/bias/running_mean/running_var.
 ``num_batches_tracked`` (which segtpu does not keep) is set to 0 for every
 plain BatchNorm, as a freshly built ``nn.BatchNorm2d`` has it.
 """
@@ -20,8 +21,9 @@ import numpy as np
 import torch
 
 Entry = Tuple[str, str, Tuple[str, ...]]  # (kind, torch_prefix, segtpu_path)
-# kinds: conv | deconv | bn (BatchNorm) | abn (InPlaceABN); a trailing '?'
-# marks an entry that is present only in some blocks (downsample branches)
+# kinds: conv | deconv | linear | bn (BatchNorm, ABN) | abn (InPlaceABN); a
+# trailing '?' marks an entry that is present only in some blocks
+# (downsample branches)
 
 
 def _entries_resnet_encoder(prefix_map: Dict[str, str], layers,
@@ -315,6 +317,44 @@ def _entries_squeezenet() -> List[Entry]:
     return E
 
 
+def identity_residual_entries(n_convs: int, tp: str = "",
+                              fp: Tuple[str, ...] = ()) -> List[Entry]:
+    """segtpu's ``IdentityResidualBlock`` at ``fp`` onto the port's at
+    prefix ``tp`` (``"block."`` or ``""``): ``bn1``, ``bn2`` (and ``bn3``)
+    are ABNs, whose BatchNorm segtpu names ``bn``; ``n_convs`` 2 or 3; the
+    projection ``proj_conv`` where the block has one."""
+    E: List[Entry] = [("bn", f"{tp}bn{i}", fp + (f"bn{i}", "bn")) for i in range(1, n_convs + 1)]
+    E += [("conv", f"{tp}conv{i}", fp + (f"conv{i}", "Conv_0")) for i in range(1, n_convs + 1)]
+    E.append(("conv?", f"{tp}proj_conv", fp + ("proj_conv", "Conv_0")))
+    return E
+
+
+def dense_module_entries(layers: int, tp: str = "", fp: Tuple[str, ...] = ()) -> List[Entry]:
+    """segtpu's ``DenseModule`` of ``layers`` layers: ``bn1_i``/``bn3_i``
+    (ABNs), ``conv1_i``/``conv3_i``."""
+    E: List[Entry] = []
+    for i in range(layers):
+        for k in (1, 3):
+            E.append(("bn", f"{tp}bn{k}_{i}", fp + (f"bn{k}_{i}", "bn")))
+            E.append(("conv", f"{tp}conv{k}_{i}", fp + (f"conv{k}_{i}", "Conv_0")))
+    return E
+
+
+def wider_resnet_entries(depth: int = 28) -> List[Entry]:
+    """segtpu's ``WideResNet`` (``layer{i}_{b}`` blocks) onto the port's
+    (``layer{i}.{b}``); the 1x1 ``shortcut`` where a block has one."""
+    E: List[Entry] = [("conv", "conv1", ("conv1", "Conv_0"))]
+    for li in range(1, 4):
+        for b in range((depth - 4) // 6):
+            tp, fp = f"layer{li}.{b}", (f"layer{li}_{b}",)
+            for k in (1, 2):
+                E.append(("bn", f"{tp}.bn{k}", fp + (f"bn{k}",)))
+                E.append(("conv", f"{tp}.conv{k}", fp + (f"conv{k}", "Conv_0")))
+            E.append(("conv?", f"{tp}.shortcut", fp + ("shortcut", "Conv_0")))
+    E += [("bn", "bn1", ("bn1",)), ("linear", "linear", ("linear",))]
+    return E
+
+
 _ENTRY_BUILDERS = {
     "linknet34": _entries_linknet34,
     "unet": _entries_unet,
@@ -335,6 +375,9 @@ _ENTRY_BUILDERS = {
     "duc_dc": _entries_duc,
     "linknext": _entries_linknext,
     "squeezenet": _entries_squeezenet,
+    # not in segtpu's registry: a classifier, WRN-28-10 (other depths:
+    # state_dict_from_entries(wider_resnet_entries(depth), ...))
+    "wider_resnet": wider_resnet_entries,
 }
 
 
@@ -354,11 +397,11 @@ def _tensor(a) -> torch.Tensor:
 def state_dict_from_jax(model_name: str, params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
     """Torch-format state_dict (float32 CPU tensors) from segtpu's
     ``params``/``batch_stats`` trees of ``model_name``. Raises ``ValueError``
-    for a model the port does not have and ``KeyError`` for a missing leaf."""
+    for a name with no mapping and ``KeyError`` for a missing leaf."""
     name = model_name.lower()
     if name not in _ENTRY_BUILDERS:
-        raise ValueError(f"model {model_name!r} is not yet ported to segtpu_torch; "
-                         f"ported: {sorted(_ENTRY_BUILDERS)}")
+        raise ValueError(f"no mapping for model {model_name!r}; "
+                         f"mapped: {sorted(_ENTRY_BUILDERS)}")
     return state_dict_from_entries(_ENTRY_BUILDERS[name](), params, batch_stats)
 
 
@@ -387,8 +430,11 @@ def state_dict_from_entries(entries: List[Entry], params: Mapping,
             if kind == "bn":
                 sd[tp + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
             continue
-        # conv HWIO -> OIHW; deconv HWOI -> (in, out, kh, kw): same transpose
-        sd[tp + ".weight"] = _tensor(np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1)))
+        kernel = np.asarray(node["kernel"])
+        # conv HWIO -> OIHW; deconv HWOI -> (in, out, kh, kw): same transpose;
+        # dense (in, out) -> (out, in)
+        sd[tp + ".weight"] = _tensor(kernel.T if kind == "linear"
+                                     else np.transpose(kernel, (3, 2, 0, 1)))
         if "bias" in node:
             sd[tp + ".bias"] = _tensor(node["bias"])
     return sd

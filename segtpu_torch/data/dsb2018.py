@@ -85,7 +85,8 @@ def DSB2018Sliced(dataset_dir: str, grayscale: bool, patch_size: int,
     stratified split by source image, heavy train augmentations.
 
     ``raw=True`` skips the host transforms entirely: the loaders yield raw
-    pixels, for device augmentations (A4 of ROADMAP.md).
+    pixels, for the device augmentations of ``--device-augs``
+    (:mod:`segtpu_torch.augment.device`).
     """
     image_files, mask_files = _list_pairs(dataset_dir)
     images = [read_rgb(f) for f in image_files]

@@ -47,7 +47,8 @@ def INRIA(dataset_dir: str, grayscale: bool, patch_size: int,
           keep_in_mem: bool, small: bool = False, raw: bool = False):
     """Lazy tiled datasets over the 5000x5000 images
     (reference Inria.py:38-67); ``small`` truncates to 4 images; ``raw``
-    skips the host transforms, for device augmentations (A4 of ROADMAP.md)."""
+    skips the host transforms, for the device augmentations of
+    ``--device-augs`` (:mod:`segtpu_torch.augment.device`)."""
     x = sorted(find_in_dir(os.path.join(dataset_dir, "images")))
     y = sorted(find_in_dir(os.path.join(dataset_dir, "gt")))
     if small:

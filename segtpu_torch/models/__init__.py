@@ -9,7 +9,10 @@ All 18 of segtpu's registry names, each at segtpu's registry defaults:
 ``zf_unet`` (32 filters), ``unet11``, ``unet16`` and ``albunet`` (32
 filters), ``tiramisu57``, ``tiramisu67`` and ``tiramisu103``, ``gcn``
 (ResNet-152) and ``gcn34``, ``psp_net``, ``duc`` and ``duc_dc``,
-``linknext`` and ``squeezenet``.
+``linknext`` and ``squeezenet``. As in segtpu, the WideResNet classifier
+(:mod:`segtpu_torch.models.wider_resnet`) and the blocks of
+:mod:`segtpu_torch.models.blocks` are not in the registry; any other name
+raises ``ValueError``.
 
 ``ENCODER_PREFIXES`` names each model's encoder, the parameters that
 ``--freeze-encoder`` freezes.
@@ -100,8 +103,8 @@ def get_model(model_name: str, patch_size: int = 224, num_channels: int = 3,
     dev = resolve_device(device)
     name = model_name.lower()
     if name not in _REGISTRY:
-        raise ValueError(f"model {model_name!r} is not yet ported to segtpu_torch; "
-                         f"ported: {model_names()}")
+        raise ValueError(f"no model {model_name!r} in the registry; "
+                         f"the registry: {model_names()}")
     model = _REGISTRY[name](patch_size, num_channels)
     reset_parameters(model, torch.Generator().manual_seed(seed))
     model.eval()

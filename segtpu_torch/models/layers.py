@@ -5,7 +5,8 @@ state_dict keys (``weight``, ``bias``, ``running_mean``, ``running_var``), so
 a reference ``.pth`` or :func:`segtpu_torch.compat.jax_params.state_dict_from_jax`
 loads with ``load_state_dict``. In training mode the normalisations use the
 batch statistics (kernels B1, B2, B3 through :mod:`segtpu_torch.ops.abn`) and
-update their running statistics as torch's ``BatchNorm2d`` does: momentum
+update their running statistics as torch's ``BatchNorm2d`` does (``ABN``
+is a BatchNorm followed by its activation): momentum
 0.1, and the running var takes the unbiased variance ``var * N / (N - 1)``.
 Each layer takes its channel sums once: the statistics that normalise the
 batch are the ones that update the running buffers. Random init takes an
@@ -98,6 +99,29 @@ class BatchNormTorch(nn.Module):
             return y
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                             self.bias, False, 0.0, self.eps)
+
+
+class ABN(BatchNormTorch):
+    """Plain (not fused) BatchNorm then activation (segtpu ``ABN``;
+    reference lib/modules/abn/bn.py:23-44). The parameters and running
+    statistics sit on the module itself (``weight``, ``bias``,
+    ``running_mean``, ``running_var``), as the reference ABN's. Training
+    mode: :class:`BatchNormTorch` (B1, B2; backward B1) then the
+    activation. Eval mode: one pass of the B2 kernel with the activation
+    fused, on the running statistics."""
+
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 activation: str = abn_ops.ACT_LEAKY_RELU, slope: float = 0.01):
+        super().__init__(features, eps, momentum)
+        abn_ops._check_act(activation)
+        self.activation, self.slope = activation, slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return abn_ops.act_forward(super().forward(x), self.activation, self.slope)
+        return abn_ops.fused_abn(
+            x, self.weight, self.bias, mean=self.running_mean, var=self.running_var,
+            training=False, eps=self.eps, activation=self.activation, slope=self.slope)
 
 
 class InPlaceABN(nn.Module):
@@ -216,6 +240,17 @@ def pixel_shuffle(x: torch.Tensor, upscale: int) -> torch.Tensor:
     return F.pixel_shuffle(x, upscale)
 
 
+def global_avg_pool_2d(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, C), the mean over the spatial dims (segtpu
+    ``global_avg_pool_2d``; reference abn/misc.py:4-11)."""
+    return x.mean(dim=(2, 3))
+
+
+class GlobalAvgPool2d(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return global_avg_pool_2d(x)
+
+
 def float_logits(out: torch.Tensor) -> torch.Tensor:
     """A model's logits in fp32 whatever autocast gave, or float64 for a
     float64 model (a CPU reference run)."""
@@ -229,11 +264,18 @@ Dropout2d = nn.Dropout2d
 
 
 def reset_parameters(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
-    """Re-draw every conv of ``module`` from ``generator``, in module order;
-    normalisation layers go back to weight 1, bias 0, mean 0, var 1."""
+    """Re-draw every conv and linear layer of ``module`` from ``generator``,
+    in module order (a linear layer as torch's default, U(+-1/sqrt(in))
+    for weight and bias); normalisation layers go back to weight 1, bias 0,
+    mean 0, var 1."""
     for m in module.modules():
         if isinstance(m, (Conv, ConvTranspose2dTorch)):
             m.reset_parameters(generator)
+        elif isinstance(m, nn.Linear):
+            bound = 1.0 / math.sqrt(m.in_features)
+            _uniform_(m.weight, bound, generator)
+            if m.bias is not None:
+                _uniform_(m.bias, bound, generator)
         elif isinstance(m, (BatchNormTorch, InPlaceABN)):
             with torch.no_grad():
                 m.weight.fill_(1.0)

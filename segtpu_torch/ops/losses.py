@@ -12,11 +12,16 @@ reference's quirks are kept:
   * ``bce_jaccard`` is BCEWithLogitsLossAndSmoothJaccard (lib/losses.py:56-75):
     weights (1, 0.5), normalised by their sum.
 
-Each function takes ``logits`` and ``targets`` of one shape (NCHW, C = 1)
-and returns a scalar tensor. The multiclass losses are not ported yet.
+Each binary loss takes ``logits`` and ``targets`` of one shape (NCHW,
+C = 1) and returns a scalar tensor. The multiclass losses (reference
+lib/losses.py:105-232, segtpu/ops/losses.py:132-240) take NCHW class scores
+and ``[N, H, W]`` integer class ids; like the reference's, they are not in
+the registry.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -83,6 +88,90 @@ def focal_loss_binary(logits: torch.Tensor, targets: torch.Tensor, gamma: float 
     logpt = -_bce_with_logits_elementwise(x, targets.to(x.dtype))
     loss = -((1.0 - torch.exp(logpt)) ** gamma) * logpt
     return torch.mean(loss) if size_average else torch.sum(loss)
+
+
+# ---------------------------------------------------------------------------
+# Multiclass losses: scores NCHW (class dim 1), targets [N, H, W] class ids
+# ---------------------------------------------------------------------------
+
+Weights = Optional[Union[torch.Tensor, Sequence[float]]]
+
+
+def _pick(logp: torch.Tensor, targets: torch.Tensor, ignore_index: int):
+    """``(log p of each pixel's target class, valid)``; ignored pixels pick
+    class 0 and are masked by the caller."""
+    valid = targets != ignore_index
+    safe = torch.where(valid, targets, torch.zeros_like(targets)).long()
+    return logp.gather(1, safe.unsqueeze(1)).squeeze(1), valid, safe
+
+
+def focal_loss_multi(logits: torch.Tensor, targets: torch.Tensor, gamma: float = 2.0,
+                     size_average: bool = True, ignore_index: int = -100,
+                     from_logits: bool = False) -> torch.Tensor:
+    """Multiclass focal loss (reference lib/losses.py:105-134).
+    ``from_logits``: ``logits`` already are log-probabilities. Ignored
+    pixels add 0 and the mean divides by every pixel, as torch's
+    ``nll_loss(reduce=False)`` then ``mean()``."""
+    logp = logits if from_logits else F.log_softmax(logits, dim=1)
+    logpt, valid, _ = _pick(logp, targets, ignore_index)
+    zero = torch.zeros_like(logpt)
+    logpt = torch.where(valid, logpt, zero)
+    loss = torch.where(valid, -((1.0 - torch.exp(logpt)) ** gamma) * logpt, zero)
+    return torch.mean(loss) if size_average else torch.sum(loss)
+
+
+def jaccard_loss_multi(logits: torch.Tensor, targets: torch.Tensor, ignore_index: int = -100,
+                       from_logits: bool = False, class_weights: Weights = None,
+                       reduce: bool = True, smooth: float = 100.0) -> torch.Tensor:
+    """Multiclass smoothed Jaccard (reference lib/losses.py:137-195): per
+    class over the non-ignored pixels, 0 for a class absent from the
+    target; class weights normalised to sum 1. ``from_logits``: ``logits``
+    are log-probabilities. ``reduce=False`` gives the per-class losses."""
+    probs = torch.exp(logits) if from_logits else F.softmax(logits, dim=1)
+    valid = (targets != ignore_index).to(probs.dtype)
+    classes = torch.arange(probs.shape[1], device=probs.device).view(1, -1, 1, 1)
+    t = (targets.unsqueeze(1) == classes).to(probs.dtype) * valid.unsqueeze(1)
+    p = probs * valid.unsqueeze(1)
+    dims = (0, 2, 3)
+    num_preds = t.sum(dims)
+    intersection = (p * t).sum(dims)
+    union = p.sum(dims) + num_preds
+    jac = (intersection + smooth) / (union - intersection + smooth)
+    loss = torch.where(num_preds == 0, torch.zeros_like(jac), 1.0 - jac)
+    if class_weights is not None:
+        w = torch.as_tensor(class_weights, dtype=loss.dtype, device=loss.device)
+        loss = loss * (w / w.sum())
+    return loss.sum() if reduce else loss
+
+
+def focal_and_jaccard_loss_multi(logits: torch.Tensor, targets: torch.Tensor,
+                                 jaccard_weight: float = 1.0, class_weights: Weights = None,
+                                 ignore_index: int = -1) -> torch.Tensor:
+    """Focal + Jaccard over ``1 + jaccard_weight`` (reference lib/losses.py:198-216)."""
+    logp = F.log_softmax(logits, dim=1)
+    fl = focal_loss_multi(logp, targets, ignore_index=ignore_index, from_logits=True)
+    jl = jaccard_loss_multi(logp, targets, ignore_index=ignore_index, from_logits=True,
+                            class_weights=class_weights)
+    return (fl + jl) / (1.0 + jaccard_weight)
+
+
+def nll_and_jaccard_loss_multi(logits: torch.Tensor, targets: torch.Tensor,
+                               jaccard_weight: float = 1.0, class_weights: Weights = None,
+                               ignore_index: int = -1) -> torch.Tensor:
+    """NLL + Jaccard over ``1 + jaccard_weight`` (reference lib/losses.py:219-232):
+    the NLL's mean divides by the summed pixel weights, an ignored pixel
+    weighs 0."""
+    logp = F.log_softmax(logits, dim=1)
+    picked, valid, safe = _pick(logp, targets, ignore_index)
+    if class_weights is not None:
+        w = torch.as_tensor(class_weights, dtype=logp.dtype, device=logp.device)
+        pix_w = torch.where(valid, w[safe], torch.zeros_like(picked))
+    else:
+        pix_w = valid.to(logp.dtype)
+    nll = -torch.sum(picked * pix_w) / torch.clamp(torch.sum(pix_w), min=_EPS)
+    jl = jaccard_loss_multi(logp, targets, ignore_index=ignore_index, from_logits=True,
+                            class_weights=class_weights)
+    return (nll + jl) / (1.0 + jaccard_weight)
 
 
 LOSS_REGISTRY = {

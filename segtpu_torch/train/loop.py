@@ -100,12 +100,17 @@ def run_train_epoch(train_step, loader, lr: float, epoch: int, metric_names, wri
 
 
 def run_validate_epoch(eval_step, loader, epoch: int, metric_names, writer=None,
-                       device: DeviceLike = None) -> Meters:
+                       device: DeviceLike = None, transform_fn=None) -> Meters:
     """One validation epoch of ``eval_step`` (``make_eval_step``). Returns
     ``(loss_meter, {metric: meter})``; with a writer, also the image grids of
-    the last batch and the raw PR curve of its ``pr_counts``."""
+    the last batch and the raw PR curve of its ``pr_counts``.
+    ``transform_fn(x, y) -> (x, y)``: a deterministic transform of each
+    batch on the device before the step, e.g. the normalisation of a raw
+    loader (segtpu's ``make_eval_step(transform_fn=...)``)."""
     batch_logs, last_batch = [], None
     for batch in prefetch_to_device(loader, device):
+        if transform_fn is not None:
+            batch = transform_fn(*batch)
         batch_logs.append(eval_step(batch[0], batch[1]))
         last_batch = batch
 

@@ -15,14 +15,18 @@ model), and the loss and metrics are taken on them outside autocast.
 Each step function carries its model as ``step.model``, for the epoch
 loop's image and histogram logging.
 
-Waiting for a later slice: ``augment_fn`` (device augmentations) of
-segtpu's ``make_train_step``.
+``augment_fn`` (segtpu's device augmentations, segtpu/train/state.py:96-98)
+runs on the raw batch in fp32, before autocast and the model. Its draws come
+from a ``torch.Generator`` on the batch's device, seeded for each step from
+(run seed, 7, step) as segtpu folds 7 and ``state.step`` into its key: a run
+resumed at step k draws what an unbroken run draws at step k.
 """
 
 from __future__ import annotations
 
 from typing import AbstractSet, Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -47,10 +51,17 @@ def grad_absmax(grads) -> torch.Tensor:
     return torch.stack(torch._foreach_norm(grads, float("inf"))).max()
 
 
+def augment_seed(seed: int, step: int) -> int:
+    """The seed of step ``step``'s augmentation generator in a run seeded
+    ``seed``: a hash of (seed, 7, step) on the host, no device work."""
+    return int(np.random.SeedSequence([seed, 7, step]).generate_state(1, np.uint64)[0] >> 1)
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn: Callable,
                     metrics: Optional[Dict[str, Callable]] = None, bf16: bool = False,
                     trainable_mask: Optional[AbstractSet[str]] = None,
                     param_penalty: Optional[Callable[[nn.Module], torch.Tensor]] = None,
+                    augment_fn: Optional[Callable] = None, seed: int = 42,
                     ) -> Callable[[torch.Tensor, torch.Tensor, float], Logs]:
     """``step(x, y, lr) -> logs``: one training step of ``model`` in place.
 
@@ -68,7 +79,14 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn:
     per parameter. ``param_penalty(model) -> 0-d tensor`` is added to
     ``batch_size * loss`` before the backward (the regularised trainer,
     reference torch_train_reg.py:92-97); the logged ``loss`` stays the
-    unscaled loss. ``grad_absmax`` is taken after the mask."""
+    unscaled loss. ``grad_absmax`` is taken after the mask.
+
+    ``augment_fn(generator, x, y) -> (x, y)``: an on-device augmentation
+    (:func:`segtpu_torch.augment.device.get_device_pipelines`) of the raw
+    batch, in fp32, before the model; its generator is seeded with
+    :func:`augment_seed` of ``seed`` and the step's index, ``step.step``,
+    which counts the calls and which a resumed run sets to the steps
+    already taken."""
     metrics = metrics or {}
     frozen = []
     if trainable_mask is not None:
@@ -78,8 +96,17 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn:
             raise ValueError(f"trainable_mask names no parameter of the model: {sorted(unknown)}")
         frozen = [p for n, p in names.items() if n not in trainable_mask]
 
+    generators: Dict[torch.device, torch.Generator] = {}
+
     def train_step(x: torch.Tensor, y: torch.Tensor, lr: float) -> Logs:
         model.train()
+        if augment_fn is not None:
+            g = generators.get(x.device)
+            if g is None:
+                g = generators[x.device] = torch.Generator(device=x.device)
+            g.manual_seed(augment_seed(seed, train_step.step))
+            x, y = augment_fn(g, x.float(), y.float())
+        train_step.step += 1
         x = _model_input(x)
         set_learning_rate(optimizer, lr)
         optimizer.zero_grad(set_to_none=True)
@@ -102,6 +129,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn:
         return logs
 
     train_step.model = model
+    train_step.step = 0
     return train_step
 
 

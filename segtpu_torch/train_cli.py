@@ -27,9 +27,12 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from segtpu_torch.augment.device import get_device_pipelines
 from segtpu_torch.data import get_dataset
+from segtpu_torch.data.dsb2018 import DSB2018Sliced
+from segtpu_torch.data.inria import INRIA
 from segtpu_torch.data.pipeline import DataLoader, Subset
-from segtpu_torch.data.shapes import DeviceShapesSet
+from segtpu_torch.data.shapes import DeviceShapesSet, ShapesDataset
 from segtpu_torch.device import resolve_device
 from segtpu_torch.models import get_model, place_model, without_encoder
 from segtpu_torch.ops.losses import get_loss
@@ -47,8 +50,6 @@ LATER_FLAGS = (
      "slice 5 of ROADMAP.md (parallel modes: tensor parallel)"),
     ("s2d", bool, "--s2d", "slice 5 of ROADMAP.md (s2d mode) and A1"),
     ("packed", bool, "--packed", "A18 of ROADMAP.md (tiramisu packed growth and remat_policy)"),
-    ("device_augs", bool, "--device-augs",
-     "slice 5 of ROADMAP.md (device augmentations) and A4 (augment_fn)"),
     ("encoder_weights", lambda v: v is not None, "--encoder-weights",
      "A1 of ROADMAP.md (torchvision-format encoder weights)"),
 )
@@ -103,7 +104,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="Write a torch.profiler Chrome trace of the first training "
                              "epoch into this directory")
     parser.add_argument("--device-augs", action="store_true",
-                        help="Device augmentation (not yet ported)")
+                        help="Augment on the device inside the train step (raw loaders; "
+                             "shapes, dsb2018 and inria*)")
     parser.add_argument("--freeze-encoder", action="store_true",
                         help="Freeze the encoder's parameters (zero gradients)")
     parser.add_argument("--seed", type=int, default=None,
@@ -148,6 +150,31 @@ def _make_writer(experiment: str):
     return SummaryWriter(comment="_" + experiment)
 
 
+def device_aug_sets(args):
+    """``(augment_fn, eval_transform_fn, (trainset, validset))`` of
+    ``--device-augs`` (segtpu/train_cli.py:194-229): the dataset's device
+    pipelines and its raw loaders. Exits for ``-g`` and for a dataset
+    without a device pipeline."""
+    if args.grayscale:
+        raise SystemExit("--device-augs pipelines are RGB (3-channel normalization); "
+                         "drop -g or use the host augmentation path")
+    pipelines = get_device_pipelines(args.dataset)
+    if pipelines is None:
+        raise SystemExit(f"--device-augs not supported for {args.dataset}")
+    name = args.dataset.lower()
+    if name == "shapes":
+        sets = (ShapesDataset(1024, args.patch_size, normalize=False),
+                ShapesDataset(128, args.patch_size, seed=1_000_000, normalize=False))
+    elif name == "dsb2018":
+        sets = DSB2018Sliced(args.data_dir, args.grayscale, args.patch_size, raw=True)[:2]
+    elif name in ("inria", "inria-small"):
+        sets = INRIA(args.data_dir, args.grayscale, args.patch_size, args.memory,
+                     small=name == "inria-small", raw=True)[:2]
+    else:
+        raise SystemExit("--device-augs raw loaders wired for shapes/dsb2018/inria")
+    return pipelines[0], pipelines[1], sets
+
+
 def main(argv=None, *, param_penalty: Optional[Callable] = None,
          model_builder: Optional[Callable] = None, trainable_mask_fn: Optional[Callable] = None,
          model_initializer: Optional[Callable] = None, experiment_prefix: str = ""):
@@ -187,8 +214,13 @@ def main(argv=None, *, param_penalty: Optional[Callable] = None,
     with open(os.path.join(experiment_dir, "arguments.txt"), "w") as f:
         f.write(arg_line)
 
-    trainset, validset, _ = get_dataset(args.dataset, args.data_dir, grayscale=args.grayscale,
-                                        patch_size=args.patch_size, keep_in_mem=args.memory)
+    augment_fn = eval_transform_fn = None
+    if args.device_augs:
+        augment_fn, eval_transform_fn, (trainset, validset) = device_aug_sets(args)
+    else:
+        trainset, validset, _ = get_dataset(args.dataset, args.data_dir,
+                                            grayscale=args.grayscale,
+                                            patch_size=args.patch_size, keep_in_mem=args.memory)
     if args.steps is not None and args.steps > 0:
         n_train, n_val = args.steps * args.batch_size, max(args.steps // 4, 1) * args.batch_size
         if isinstance(trainset, DeviceShapesSet):
@@ -259,7 +291,12 @@ def main(argv=None, *, param_penalty: Optional[Callable] = None,
         print("Resuming training from epoch", start_epoch, " and loss", best_loss)
 
     train_step = make_train_step(model, optimizer, loss_fn, metrics, bf16=args.bf16,
-                                 trainable_mask=trainable, param_penalty=param_penalty)
+                                 trainable_mask=trainable, param_penalty=param_penalty,
+                                 augment_fn=augment_fn,
+                                 seed=42 if args.seed is None else args.seed)
+    # every epoch has len(trainloader) steps (drop_last), so a resumed run's
+    # step count is segtpu's restored state.step
+    train_step.step = start_epoch * len(trainloader)
     eval_step = make_eval_step(model, loss_fn, metrics, bf16=args.bf16,
                                with_pr_curve=writer is not None)
     metric_names = list(metrics)
@@ -295,7 +332,8 @@ def main(argv=None, *, param_penalty: Optional[Callable] = None,
             print("profiler trace written to", trace)
 
         valid_loss, valid_scores = run_validate_epoch(eval_step, validloader, epoch, metric_names,
-                                                      writer=writer, device=device)
+                                                      writer=writer, device=device,
+                                                      transform_fn=eval_transform_fn)
 
         # divergence tripwire: the reference only logs the grad abs-max;
         # abort instead, keeping the last weights for a post-mortem

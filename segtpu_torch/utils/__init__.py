@@ -95,3 +95,26 @@ def make_grid(images, nrow: int = 8, pad: int = 2, normalize: bool = True) -> np
         x0 = cl * (w + pad) + pad
         grid[y0:y0 + h, x0:x0 + w] = images[i]
     return grid
+
+
+def show_landmarks_batch(data, out: str = None):
+    """A batch of images and masks as two grids (reference lib/common.py:25-36;
+    segtpu ``show_landmarks_batch``): ``data`` is ``(x, y)``, NCHW tensors
+    or arrays. Saves to ``out`` on the Agg backend when given, else shows
+    the figure. Returns the figure."""
+    import matplotlib
+    if out:
+        matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    x, y = data
+    f, (ax1, ax2) = plt.subplots(2, 1)
+    ax1.imshow(np.squeeze(make_grid(x)))
+    ax2.imshow(np.squeeze(make_grid(y)))
+    plt.title("Batch from dataloader")
+    if out:
+        f.savefig(out, dpi=120)
+        plt.close(f)
+    else:
+        plt.show()
+    return f

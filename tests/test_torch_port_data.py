@@ -450,6 +450,55 @@ def test_cli_epoch_on_dsb2018_writes_segtpu_csv_path(fixture_dir, tmp_path):
     assert ab_nuclei.read_val_iou(path) == history["val_iou"]
 
 
+def _device_aug_spy(monkeypatch, pipeline):
+    """Wrap the train CLI's step so that each augmentation is checked against
+    the dataset's pipeline run on the same raw batch with the same seed."""
+    from segtpu_torch.augment import device as dev_aug
+    seen = []
+    real = train_cli.make_train_step
+
+    def spy(*args, augment_fn=None, **kwargs):
+        def augment(g, x, y):
+            want = pipeline(torch.Generator().manual_seed(g.initial_seed()), x, y)
+            out = augment_fn(g, x, y)
+            seen.append(all(torch.equal(a, b) for a, b in zip(out, want))
+                        and float(x.max()) > 10.0 and set(out[1].unique().tolist()) <= {0.0, 1.0})
+            return out
+        return real(*args, augment_fn=augment, **kwargs)
+
+    monkeypatch.setattr(train_cli, "make_train_step", spy)
+    return seen, dev_aug
+
+
+def test_cli_device_augs_on_dsb2018(fixture_dir, tmp_path, monkeypatch):
+    """``-d dsb2018 --device-augs``: the raw sliced loaders, the DSB2018
+    pipeline in the step (its output binary masks), and finite losses."""
+    from segtpu_torch.augment.device import dsb2018_train_pipeline
+    seen, _ = _device_aug_spy(monkeypatch, dsb2018_train_pipeline)
+    argv = ["-m", "linknet34", "-d", "dsb2018", "-dd", str(fixture_dir), "-p", "64", "-b", "2",
+            "-l", "bce_jaccard", "-o", "adam", "-lr", "1e-4", "-e", "1", "-s", "2", "--seed", "5",
+            "--device-augs", "--no-tensorboard", "--light-logging", "--device", "cpu",
+            "--experiments-dir", str(tmp_path / "experiments")]
+    history = train_cli.main(argv)
+    assert seen == [True, True] and np.isfinite(history["loss"][0] + history["val_loss"][0])
+
+
+def test_cli_device_augs_on_inria(inria_dirs, tmp_path, monkeypatch):
+    """``-d inria --device-augs`` on the 120 x 120 tiles (the tiled dataset's
+    target shape cut to match): raw tiles and the INRIA pipeline."""
+    from segtpu_torch.augment.device import inria_train_pipeline
+    seen, _ = _device_aug_spy(monkeypatch, inria_train_pipeline)
+    monkeypatch.setattr(inria, "TiledImagesDataset",
+                        lambda *a, target_shape, **k: TiledImagesDataset(
+                            *a, target_shape=(120, 120), **k))
+    argv = ["-m", "linknet34", "-d", "inria", "-dd", str(inria_dirs[0]), "-p", "64", "-b", "2",
+            "-l", "bce_jaccard", "-o", "adam", "-lr", "1e-4", "-e", "1", "-s", "2",
+            "--device-augs", "--no-tensorboard", "--light-logging", "--device", "cpu",
+            "--experiments-dir", str(tmp_path / "experiments")]
+    history = train_cli.main(argv)
+    assert seen == [True, True] and np.isfinite(history["loss"][0] + history["val_loss"][0])
+
+
 def _write_csv(path, val_iou):
     path.parent.mkdir(parents=True, exist_ok=True)
     rows = ["epoch,loss,val_loss,iou,accuracy,val_iou,val_accuracy"]

@@ -46,6 +46,7 @@ from segtpu_torch.data import get_dataset, pipeline, shapes
 from segtpu_torch.models import ENCODER_PREFIXES, get_model
 from segtpu_torch.ops import losses, meters, metrics
 from segtpu_torch.train import loop, optim
+from segtpu_torch.train import state as state_mod
 from segtpu_torch.train.checkpoint import load_snapshot, restore_snapshot, save_snapshot
 from segtpu_torch.train.state import make_eval_step, make_train_step
 from segtpu_torch.utils import count_parameters, make_grid
@@ -603,7 +604,7 @@ def test_cli_shapes_device_with_cap_sgdr_and_resume(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--model-parallel", "2"], ["--s2d"], ["--remat"], ["--packed"],
-                                  ["--device-augs"], ["--encoder-weights", "w.pth"]])
+                                  ["--encoder-weights", "w.pth"]])
 def test_cli_flags_of_later_slices_exit(tmp_path, flag):
     """Each unported flag exits naming its ROADMAP item before the run makes
     a file; ``--remat`` is ported and exits as segtpu's does for a model
@@ -615,6 +616,100 @@ def test_cli_flags_of_later_slices_exit(tmp_path, flag):
     with pytest.raises(SystemExit, match="ROADMAP"):
         train_cli.main(_cli_args(tmp_path, *flag))
     assert not (tmp_path / "shapes").exists()
+
+
+def test_cli_device_augs_trains_and_resumes_with_the_same_draws(tmp_path, monkeypatch):
+    """``-d shapes --device-augs``: raw SHAPES loaders and the shapes
+    pipeline in the step; a run of one epoch resumed with ``-r`` draws the
+    unbroken two-epoch run's augmentations in its second epoch (the same
+    generator seed at each step, the same augmented batches bit for bit)."""
+    seeds, batches = [], []
+    real = train_cli.make_train_step
+
+    def spy(*args, augment_fn=None, **kwargs):
+        def augment(g, x, y):
+            seeds.append(g.initial_seed())
+            assert float(x.max()) > 10.0  # raw 0-255 pixels reach the step
+            out = augment_fn(g, x, y)
+            batches.append(tuple(t.clone() for t in out))
+            return out
+        return real(*args, augment_fn=augment, **kwargs)
+
+    monkeypatch.setattr(train_cli, "make_train_step", spy)
+    args = lambda d, *extra, epochs: _cli_args(d, "--device-augs", "--seed", "3", *extra,
+                                                 epochs=epochs, steps=2)
+    whole = train_cli.main(args(tmp_path / "a", epochs=2))
+    unbroken, unbroken_batches = list(seeds), list(batches)
+    assert unbroken == [state_mod.augment_seed(3, k) for k in range(4)]
+    assert len(set(unbroken)) == 4
+    seeds.clear()
+    batches.clear()
+    train_cli.main(args(tmp_path / "b", epochs=1))
+    resumed = train_cli.main(args(tmp_path / "b", "-r", epochs=2))
+    assert seeds == unbroken and resumed["epoch"] == [0, 1]
+    for got, want in zip(batches[2:], unbroken_batches[2:]):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(math.isfinite(v) for v in whole["loss"] + whole["val_loss"] + resumed["loss"])
+
+
+def test_cli_device_augs_validates_raw_batches_normalised(tmp_path, monkeypatch):
+    """Validation takes the raw loader's batches through the pipeline's eval
+    transform: the step sees ImageNet-normalised inputs."""
+    seen = []
+    real = train_cli.make_eval_step
+
+    def spy(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def eval_step(x, y):
+            seen.append(float(x.abs().max()))
+            return step(x, y)
+        eval_step.model = step.model
+        return eval_step
+
+    monkeypatch.setattr(train_cli, "make_eval_step", spy)
+    train_cli.main(_cli_args(tmp_path, "--device-augs"))
+    assert seen and max(seen) < 3.0
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["-g"], "--device-augs pipelines are RGB"),
+    (["-d", "shapes-device"], "--device-augs not supported for shapes-device")])
+def test_cli_device_augs_exits_as_segtpu(tmp_path, extra, message):
+    """``-g`` and a dataset without a device pipeline exit before the data
+    is loaded (segtpu/train_cli.py:196-204)."""
+    args = _cli_args(tmp_path, "--device-augs")
+    if extra[0] == "-d":
+        args[args.index("-d") + 1] = extra[1]
+        extra = []
+    with pytest.raises(SystemExit, match=message):
+        train_cli.main(args + extra)
+
+
+def test_train_step_augments_in_fp32_before_the_model():
+    """``make_train_step(augment_fn=...)``: the augmentation sees the raw
+    fp32 batch and the generator of step k, seeded by (seed, 7, k); the
+    model sees its output; ``step.step`` counts the calls."""
+    model = get_model("zf_unet", device="cpu")
+    calls = []
+
+    def augment(g, x, y):
+        calls.append((g.initial_seed(), x.dtype, y.dtype))
+        return x * 0.0, y
+
+    inputs = []
+    model.register_forward_pre_hook(lambda m, a: inputs.append(a[0].clone()))
+    opt = optim.get_optimizer("sgd", model.parameters(), 1e-3)
+    step = make_train_step(model, opt, losses.get_loss("bce"), augment_fn=augment, seed=11)
+    x = torch.rand(2, 3, 32, 32, dtype=torch.float64) * 255
+    y = (torch.rand(2, 1, 32, 32) > 0.5).float()
+    step(x, y, 1e-3)
+    step.step = 7
+    step(x, y, 1e-3)
+    assert calls == [(state_mod.augment_seed(11, 0), torch.float32, torch.float32),
+                     (state_mod.augment_seed(11, 7), torch.float32, torch.float32)]
+    assert step.step == 8 and all(float(t.abs().max()) == 0.0 for t in inputs)
+    assert state_mod.augment_seed(11, 7) != state_mod.augment_seed(12, 7)
 
 
 def test_cli_without_a_gpu_raises_unless_the_cpu_is_asked_for(tmp_path, monkeypatch):

@@ -59,15 +59,50 @@ def test_state_dict_from_jax_equals_export_state_dict(linknet):
         np.testing.assert_array_equal(ours[k].numpy(), v, err_msg=k)
 
 
-# segtpu's WiderResNet (models/wider_resnet.py), which segtpu's registry does
-# not name, is the one model of segtpu that the port lacks.
+# segtpu's WiderResNet (models/wider_resnet.py) is ported but, as in segtpu,
+# not in the registry: state_dict_from_jax maps it, get_model refuses it.
 def test_state_dict_from_jax_rejects_unported_model():
-    with pytest.raises(ValueError, match="not yet ported"):
-        state_dict_from_jax("wider_resnet", {}, {})
+    """``"wider_resnet"`` maps segtpu's WRN-28 tree leaf for leaf onto the
+    port's WideResNet (each leaf used once, transposed as its kind says); a
+    name with no mapping raises."""
+    from segtpu.models.wider_resnet import WideResNet as JaxWideResNet
+    from segtpu_torch.models.wider_resnet import WideResNet
+    from torch_port_util import _jax_variables
+
+    params, stats = _jax_variables(JaxWideResNet(depth=28, widen_factor=2), (1, 8, 8, 3))
+    sd = state_dict_from_jax("wider_resnet", params, stats)
+    model = WideResNet(depth=28, widen_factor=2)
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd)
+    leaves = [np.asarray(a) for tree in (params, stats) for a in _leaves(tree)]
+    used = [v.numpy() for k, v in sd.items() if not k.endswith("num_batches_tracked")]
+    # 25 BatchNorms x 4, 25 convs x 2 (kernel, bias), 3 shortcuts x 2, the linear's 2
+    assert len(used) == len(leaves) == 25 * 4 + 25 * 2 + 3 * 2 + 2
+    assert sorted(a.size for a in used) == sorted(a.size for a in leaves)
+    np.testing.assert_array_equal(sd["linear.weight"].numpy(), params["linear"]["kernel"].T)
+    np.testing.assert_array_equal(sd["layer2.0.shortcut.weight"].numpy(),
+                                  params["layer2_0"]["shortcut"]["Conv_0"]["kernel"]
+                                  .transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(sd["layer3.3.bn2.running_var"].numpy(),
+                                  stats["layer3_3"]["bn2"]["var"])
+    with pytest.raises(ValueError, match="no mapping for model 'wider_resnet_50'"):
+        state_dict_from_jax("wider_resnet_50", {}, {})
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 def test_get_model_rejects_unported_model():
-    with pytest.raises(ValueError, match="not yet ported"):
+    """segtpu's registry does not name wider_resnet; neither does the port's."""
+    from segtpu.models import get_model as jax_get_model
+    with pytest.raises(ValueError, match="wider_resnet"):
+        jax_get_model("wider_resnet")
+    with pytest.raises(ValueError, match="no model 'wider_resnet' in the registry"):
         get_model("wider_resnet", device="cpu")
 
 

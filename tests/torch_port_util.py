@@ -138,6 +138,9 @@ def _assert_outputs(got, want, atol):
     got, want = _as_tuple(got), _as_tuple(want)
     assert len(got) == len(want)
     for g, w in zip(got, want):
+        if w.ndim == 2:  # a classifier's [N, classes] logits
+            np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), atol=atol, rtol=0)
+            continue
         assert g.shape == (w.shape[0], w.shape[3], w.shape[1], w.shape[2])
         np.testing.assert_allclose(_nhwc(g), np.asarray(w), atol=atol, rtol=0)
 
@@ -190,3 +193,119 @@ def _compare(module, model, entries, x, n_stats, atol=ATOL, f64=False):
                                        err_msg=key)
             checked += 1
     assert checked == 2 * n_stats
+
+
+# ---------------------------------------------------------------------------
+# segtpu's device augmentations, replayed: for a key, the per-sample
+# parameters that segtpu/augment/device.py draws, as the port's applies take
+# them (segtpu_torch/augment/device.py). Each replay repeats segtpu's splits
+# and draws line for line, so the port's apply can be fed segtpu's values.
+# ---------------------------------------------------------------------------
+
+def _bern(key, prob, n):
+    """segtpu device.py:27-28."""
+    return jax.random.uniform(key, (n,)) < prob
+
+
+def _params(**arrays):
+    return {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
+
+
+def replay_fire(key, n, prob=0.5):
+    """The flips, transpose, invert and grayscale (device.py:41, 50, 59, 251,
+    473): one Bernoulli draw on ``key`` itself."""
+    return _params(fire=_bern(key, prob, n))
+
+
+def replay_rotate90(key, n, prob=0.5):
+    """device.py:68-72."""
+    k1, k2 = jax.random.split(key, 2)
+    fire = _bern(k1, prob, n)
+    factor = jax.random.randint(k2, (n,), 0, 5) % 4
+    return _params(factor=np.asarray(jnp.where(fire, factor, 0)).astype(np.int64))
+
+
+def replay_shift_scale_rotate(key, n, h, w, shift_limit=0.0625, scale_limit=0.1,
+                              rotate_limit=45.0, prob=0.5):
+    """device.py:150-160."""
+    k1, k2, k3, k4, k5 = jax.random.split(key, 5)
+    fire = _bern(k1, prob, n)
+    angle = jax.random.uniform(k2, (n,), minval=-rotate_limit, maxval=rotate_limit)
+    scale = jax.random.uniform(k3, (n,), minval=1 - scale_limit, maxval=1 + scale_limit)
+    dx = jax.random.uniform(k4, (n,), minval=-shift_limit, maxval=shift_limit) * w
+    dy = jax.random.uniform(k5, (n,), minval=-shift_limit, maxval=shift_limit) * h
+    return _params(angle=jnp.where(fire, angle, 0.0), scale=jnp.where(fire, scale, 1.0),
+                   dx=jnp.where(fire, dx, 0.0), dy=jnp.where(fire, dy, 0.0))
+
+
+def replay_shift(key, n, limit=4.0, prob=0.5):
+    """device.py:181-187."""
+    k1, k2, k3 = jax.random.split(key, 3)
+    fire = _bern(k1, prob, n)
+    dx = jnp.round(jax.random.uniform(k2, (n,), minval=-limit, maxval=limit))
+    dy = jnp.round(jax.random.uniform(k3, (n,), minval=-limit, maxval=limit))
+    return _params(dx=jnp.where(fire, dx, 0.0), dy=jnp.where(fire, dy, 0.0))
+
+
+def replay_crop(key, n, h, w, size):
+    """device.py:198-200."""
+    k1, k2 = jax.random.split(key, 2)
+    i = jax.random.randint(k1, (n,), 0, h - size + 1)
+    j = jax.random.randint(k2, (n,), 0, w - size + 1)
+    return _params(i=np.asarray(i).astype(np.int64), j=np.asarray(j).astype(np.int64))
+
+
+def replay_alpha(key, n, kind, limit, prob=0.5):
+    """brightness and contrast (device.py:224-227, 235-238), saturation
+    (:250-253) and the filter (:278-281)."""
+    k1, k2 = jax.random.split(key, 2)
+    fire = _bern(k1, prob, n)
+    if kind == "filter":
+        return _params(alpha=jnp.where(fire, limit * jax.random.uniform(k2, (n,)), 0.0))
+    if kind == "saturation":
+        alpha = 1.0 + jax.random.uniform(k2, (n,), minval=-limit, maxval=limit)
+    else:
+        alpha = 1.0 + limit * jax.random.uniform(k2, (n,), minval=-1, maxval=1)
+    return _params(alpha=jnp.where(fire, alpha, 1.0))
+
+
+def replay_shift_scale(key, n, w, limit=4, prob=0.25):
+    """device.py:302-311."""
+    size0 = float(w)
+    size1 = size0 + 2 * limit
+    k1, k2, k3, k4 = jax.random.split(key, 4)
+    fire = _bern(k1, prob, n)
+    size = jnp.round(jax.random.uniform(k2, (n,), minval=size0, maxval=size1))
+    dx = jnp.round(jax.random.uniform(k3, (n,)) * (size1 - size))
+    dy = jnp.round(jax.random.uniform(k4, (n,)) * (size1 - size))
+    return _params(s=jnp.where(fire, size / size0, 1.0), dx=jnp.where(fire, dx - limit, 0.0),
+                   dy=jnp.where(fire, dy - limit, 0.0))
+
+
+def replay_hsv_shift(key, n, hue=(-10, 10), sat=(-25, 25), val=(-25, 25), prob=0.5):
+    """device.py:368-375 (the offsets drawn as (n, 1, 1))."""
+    k1, k2, k3, k4 = jax.random.split(key, 4)
+    fire = _bern(k1, prob, n)[:, None, None]
+    out = {}
+    for name, k, (lo, hi) in (("dh", k2, hue), ("ds", k3, sat), ("dv", k4, val)):
+        d = jax.random.uniform(k, (n, 1, 1), minval=lo, maxval=hi)
+        out[name] = np.asarray(jnp.where(fire, d, 0.0)).reshape(n)
+    return _params(**out)
+
+
+def replay_dsb2018(key, n, h, w):
+    """dsb2018_train_pipeline's splits and draws (device.py:510-515)."""
+    k = jax.random.split(key, 4)
+    return {"rotate90": replay_rotate90(k[0], n), "vflip": replay_fire(k[1], n),
+            "hflip": replay_fire(k[2], n),
+            "ssr": replay_shift_scale_rotate(k[3], n, h, w, rotate_limit=15.0)}
+
+
+def replay_inria(key, n, h, w, grayscale=False):
+    """inria_train_pipeline's splits and draws (device.py:541-547)."""
+    k = jax.random.split(key, 6)
+    return {"grayscale": replay_fire(k[0], n, 1.0 if grayscale else 0.5),
+            "brightness": replay_alpha(k[1], n, "brightness", 0.1),
+            "contrast": replay_alpha(k[2], n, "contrast", 0.1),
+            "vflip": replay_fire(k[3], n), "hflip": replay_fire(k[4], n),
+            "ssr": replay_shift_scale_rotate(k[5], n, h, w, rotate_limit=15.0)}
