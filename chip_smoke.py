@@ -5,8 +5,8 @@
 Phases, one JSON line each; any failure exits non-zero:
 
   device       the card (nvidia-smi name and power limit), torch and CUDA versions,
-               and which of pandas, tqdm, tensorboardX, cv2, sklearn, ninja
-               and matplotlib the machine can import
+               and which of pandas, tqdm, tensorboardX, cv2, sklearn, ninja,
+               matplotlib and msgpack the machine can import
   build        nvcc build of every CUDA kernel of segtpu_torch/csrc, in seconds,
                and each kernel's registers and spills from ptxas -v
   kernel_b1    the channel-sums kernel against its plain PyTorch version
@@ -86,6 +86,33 @@ Phases, one JSON line each; any failure exits non-zero:
                DeviceShapes batch, 3 warm steps then 20 timed ones; images/s,
                ms/step, peak memory, first and last loss, and the launches of
                B1, B2 and B3 per step against the layer count
+  train_dp     data parallel, two processes on the one card over gloo (NCCL
+               refuses two ranks on one device): LinkNet34 at config #2's
+               global batch 16, patch 512, 8 samples per rank, sync
+               BatchNorm over B1/B2/B3; (a) one fp32 Adam step (TF32 off,
+               dropout on) against one process on the same 16 by PARITY_TOL
+               (loss rtol 1e-5; gradient errors median <= 5e-3, max <= 0.1 of
+               max |g|; running statistics to 1e-5; parameters within Adam's
+               update bound) and the layer count of launches per rank; then
+               3 warm and 5 timed bf16 steps per rank, ms/step and launches
+               per rank (two ranks on one card measure correctness and
+               overhead, not scaling)
+  train_tp     --model-parallel 2 as the same two processes: the same fp32
+               step and gates against one process, and the parameters each
+               rank holds (sharded tensors, local count below 0.6 of the
+               model's)
+  serve_tile_parallel  the same two processes serve the seeded 5000^2
+               image tile-parallel: fp32 probabilities (TF32 off) within
+               1e-4 of one process's, then bf16 s/image at config #5 with
+               B2's launches per rank
+  train_dp_cli train_dp (b): one rank through the train CLI's own NCCL start,
+               the launcher variables set (world 1), 4 shapes-device steps
+  serve_ckpt   random torchvision-format ResNet-34 encoder weights in
+               LinkNet34, written as segtpu's .ckpt directory (the port's
+               writer): the card's model loaded as submit_cli loads it
+               (--encoder-weights, then -c <dir>.ckpt) against the CPU's from
+               a .pth of the same weights (fp32 logits, atol 1e-3); then
+               submit_cli itself on one 1024^2 image, B2's launches counted
   zf_unet_parity  full-width ZF_UNET: one 1x3x256x256 fp32 eval forward on the
                card (TF32 off) vs the CPU, then one fp32 SGD bce training step
                on 2x3x128x128 SHAPES (dropout off), card against CPU and
@@ -187,8 +214,10 @@ Phases, one JSON line each; any failure exits non-zero:
                batch 16, patch 512, bf16, Adam, -s 8): 2 epochs; 1 epoch in a
                new directory, then -r -e 2 there, whose epoch draws the
                unbroken run's second epoch (each step's generator seed, the
-               sums of the augmented batches); launches per step the layer
-               count, host waits per train epoch, losses finite and falling
+               sums of the augmented batches) and whose loss is the unbroken
+               epoch's to RESUME_RTOL (dropout keyed by step); launches per
+               step the layer count, host waits per train epoch, losses
+               finite and falling
   lr_finder    python -m segtpu_torch.lr_finder -m linknet34 -d shapes-device
                (batch 16, patch 512, Adam): 30 finite losses and the PNG
   train_nuclei the accuracy A/B of python -m segtpu_torch.ab_nuclei: the
@@ -226,7 +255,9 @@ train_zf_unet, train_unet_abn, train_tiramisu67, train_albunet,
 train_unet11, each train_zoo model's timed steps, train_cli_psp_net,
 serve_zoo, wider_resnet's card step, each train_cli run, train_ab_cli,
 train_cli_albunet, each train_cli_device_augs run, each train_nuclei leg,
-each train_nuclei_device_augs run) and read
+each train_nuclei_device_augs run, each rank's train_dp timed steps,
+train_tp step and serve_tile_parallel bf16 pass, train_dp_cli, serve_ckpt's
+submit_cli run) and read
 just after it. Then the kernel table line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from a seed,
 with the normalisation statistics set from one calibration batch so that every
@@ -253,7 +284,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from segtpu_torch import ab_nuclei, train_ab_cli, train_cli
+import torch.distributed as dist
+
+from segtpu_torch import ab_nuclei, submit_cli, train_ab_cli, train_cli
+from segtpu_torch.compat.encoder_weights import install_encoder_weights
 from segtpu_torch.augment import host as aug
 from segtpu_torch.data import get_dataset
 from segtpu_torch.data.inria import INRIA_MEAN, INRIA_STD
@@ -262,15 +296,22 @@ from segtpu_torch.data.shapes import DeviceShapes, ShapesDataset, to_nchw
 from segtpu_torch.inference import predict_tiled, predict_tiled_stream
 from segtpu_torch.models import ENCODER_PREFIXES, get_model, without_encoder
 from segtpu_torch.models import layers as layers_mod
-from segtpu_torch.models.layers import BatchNormTorch, InPlaceABN, upsample_nearest
+from segtpu_torch.models.encoders.resnet import resnet34
+from segtpu_torch.models.layers import (BatchNormTorch, InPlaceABN, set_data_shard,
+                                        set_process_group, upsample_nearest)
 from segtpu_torch.ops import abn as abn_ops
 from segtpu_torch.ops import kernels
 from segtpu_torch.ops.abn import abn_bwd_sums_plain, abn_norm_act_plain, channel_sums_plain
 from segtpu_torch.ops.losses import get_loss
 from segtpu_torch.ops.metrics import default_metrics
 from segtpu_torch.profile_reduce import NORM_LAYERS, L2_FLUSH_BYTES, cuda_ms, step_norm_shapes
-from segtpu_torch.train.checkpoint import load_snapshot, restore_snapshot, save_snapshot
+from segtpu_torch.parallel import Grid, make_grid, replicate, shard_batch
+from segtpu_torch.parallel import tensor as tensor_parallel
+from segtpu_torch.parallel.distributed import maybe_initialize_distributed
+from segtpu_torch.train.checkpoint import (load_snapshot, restore_snapshot, save_flax_snapshot,
+                                           save_snapshot)
 from segtpu_torch.train.optim import get_optimizer
+from segtpu_torch.tiles import ImageSlicer
 from segtpu_torch.train.state import make_predict_step, make_train_step
 
 SEED = 0
@@ -332,16 +373,19 @@ CLI_STEPS, CLI_VAL_BATCHES = 1024 // TRAIN_BATCH, 128 // TRAIN_BATCH
 PATHS = ("serve", "train", "train_zf_unet", "train_unet_abn", "train_tiramisu67", "train_albunet",
          "train_unet11", "train_zoo", "train_cli_psp_net", "serve_zoo", "wider_resnet",
          "train_cli", "train_ab_cli", "train_cli_albunet", "train_cli_device_augs",
-         "train_nuclei", "train_nuclei_device_augs")
+         "train_nuclei", "train_nuclei_device_augs", "train_dp", "train_dp_cli", "train_tp",
+         "serve_tile_parallel", "serve_ckpt")
 BN_PATHS = ("train_zf_unet", "train_tiramisu67", "train_albunet", "train_zoo",
             "train_cli_psp_net", "train_cli_albunet", "wider_resnet")
 ABN_PATHS = ("train", "train_unet_abn", "train_cli", "train_ab_cli", "train_nuclei",
-             "train_cli_device_augs", "train_nuclei_device_augs")
+             "train_cli_device_augs", "train_nuclei_device_augs", "train_dp", "train_dp_cli",
+             "train_tp")
 KERNEL_PATHS = {
     "channel_sums": ABN_PATHS + BN_PATHS,
-    "abn_norm_act": ("serve",) + ABN_PATHS + BN_PATHS,
+    "abn_norm_act": ("serve", "serve_tile_parallel", "serve_ckpt") + ABN_PATHS + BN_PATHS,
     "abn_bwd": ABN_PATHS}
-OPTIONAL_PACKAGES = ("pandas", "tqdm", "tensorboardX", "cv2", "sklearn", "ninja", "matplotlib")
+OPTIONAL_PACKAGES = ("pandas", "tqdm", "tensorboardX", "cv2", "sklearn", "ninja", "matplotlib",
+                     "msgpack")
 # Channel sums of fp32 terms, added in two orders: |err| <= RTOL_SUM * sum |term|.
 RTOL_SUM = 1e-5
 
@@ -2417,6 +2461,11 @@ class AugmentRecorder:
         return torch.stack(self.sums).cpu().tolist() if self.sums else []
 
 
+# The resumed epoch's loss against the unbroken run's: 1.56e-3 apart when the
+# resumed run drew other dropout masks (0.36507 against 0.36564, H100).
+RESUME_RTOL = 1e-3
+
+
 def phase_train_cli_device_augs(step_ms: float, tmpdir: Path):
     """``-m linknet34 -d shapes --device-augs`` through the train CLI at
     full width (batch 16, patch 512, bf16, Adam): (a) 2 epochs of 8 steps;
@@ -2440,9 +2489,14 @@ def phase_train_cli_device_augs(step_ms: float, tmpdir: Path):
     c_seeds, c_sums = recorded["c"]
     repeats = c_seeds == a_seeds[AUG_STEPS:] and c_sums == a_sums[AUG_STEPS:]
     falling = runs[0]["loss"][1] < runs[0]["loss"][0]
-    ok = repeats and falling and runs[2]["epochs"] == [0, 1]
+    # dropout is keyed by step as the augmentations are (ROADMAP C1): the
+    # resumed epoch's loss differs from the unbroken one's only by the
+    # card's nondeterministic sums, not by other dropout masks
+    resumed_diff = abs(runs[2]["loss"][-1] - runs[0]["loss"][-1]) / abs(runs[0]["loss"][-1])
+    ok = repeats and falling and runs[2]["epochs"] == [0, 1] and resumed_diff <= RESUME_RTOL
     emit("train_cli_device_augs", runs=runs, resumed_draws_repeat=repeats,
          resumed_epoch_loss=runs[2]["loss"][-1], unbroken_epoch_loss=runs[0]["loss"][-1],
+         resumed_loss_rel_diff=resumed_diff, resumed_loss_rtol=RESUME_RTOL,
          loss_falls=falling, launches=dict(launches), ok=bool(ok))
     if not ok:
         raise AssertionError("train_cli_device_augs checks failed")
@@ -2646,11 +2700,351 @@ def _per_step_entry(per_step):
     return {model: {k: sums[k] for k in keys if k in sums} for model, sums in per_step.items()}
 
 
+# ---------------------------------------------------------------------------
+# The parallel modes: two ranks on the one card
+# ---------------------------------------------------------------------------
+
+# NCCL refuses two ranks on one device, gloo takes CUDA tensors: the ranks of
+# train_dp, train_tp and serve_tile_parallel are two processes on cuda:0
+# over gloo. They measure correctness and overhead, not scaling.
+PAR_RANKS, PAR_WARMUP, PAR_STEPS = 2, 3, 5
+PAR_TIMEOUT_S = 300
+
+
+def _par_batch():
+    """Config #2's global batch (16 x 3 x 512^2 SHAPES) on the card, the same
+    in every process."""
+    return DeviceShapes(PATCH, device="cuda").batch(
+        TRAIN_BATCH, torch.Generator(device="cuda").manual_seed(SEED + 50))
+
+
+def par_model(grid):
+    """The seeded LinkNet34 on the card for ``grid``: rank 0's weights, sync
+    BatchNorm over the data group, the dropouts' rows of the global batch,
+    the model group's shards. Returns ``(model, sharded keys)``."""
+    model = seeded_model("cuda")
+    if grid.world > 1:
+        replicate(model)
+    set_process_group(model, grid.data_group)
+    set_data_shard(model, grid.data_rank, grid.data_size)
+    return model, tensor_parallel.shard_model(model, grid)
+
+
+def par_compare_step(grid):
+    """One fp32 (TF32 off) Adam step (lr PARITY_LR, dropout on) on the
+    global batch: the loss, the full gradients and state on the CPU, this
+    rank's launches and parameter count."""
+    with fp32_convolutions():
+        model, sharded = par_model(grid)
+        opt = get_optimizer("adam", model.parameters(), PARITY_LR)
+        step = make_train_step(model, opt, get_loss("bce_jaccard"), default_metrics(), grid=grid)
+        x, y = shard_batch(_par_batch(), grid)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        logs = step(x, y, PARITY_LR)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        grads = {n: tensor_parallel.gather_shard(p.grad, sharded[n], grid.model_group)
+                 if n in sharded else p.grad for n, p in model.named_parameters()}
+        state = (tensor_parallel.full_state_dict(model, sharded, grid) if sharded
+                 else model.state_dict())
+    return dict(loss=float(logs["loss"]), launches=launches, sharded=len(sharded),
+                local_params=sum(p.numel() for p in model.parameters()),
+                grads={n: g.detach().cpu().double() for n, g in grads.items()},
+                state={k: v.detach().cpu() for k, v in state.items()})
+
+
+def par_time_steps(grid):
+    """Config #2 (bf16 autocast, Adam 1e-3) on this rank's slice of the
+    global batch: PAR_WARMUP then PAR_STEPS timed steps, launches counted
+    over the timed ones."""
+    model, _ = par_model(grid)
+    step = make_train_step(model, get_optimizer("adam", model.parameters(), TRAIN_LR),
+                           get_loss("bce_jaccard"), default_metrics(), bf16=True, grid=grid)
+    x, y = shard_batch(_par_batch(), grid)
+    for _ in range(PAR_WARMUP):
+        step(x, y, TRAIN_LR)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step(x, y, TRAIN_LR)["loss"] for _ in range(PAR_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return dict(ms_per_step=seconds * 1e3 / PAR_STEPS, launches=kernels.launch_counts(),
+                losses=[float(v) for v in losses], local_batch=int(x.shape[0]))
+
+
+def _serve_image():
+    return np.random.default_rng(SEED + 60).integers(0, 256, (IMAGE_SIDE, IMAGE_SIDE, 3),
+                                                     dtype=np.uint8)
+
+
+def _serve_kw(grid):
+    transform = aug.Sequential([aug.ImageOnly(aug.NormalizeImage(mean=INRIA_MEAN, std=INRIA_STD))])
+    return dict(test_transform=transform, patch_size=PATCH, batch_size=BATCH, tta=True,
+                weight="pyramid", device="cuda", grid=grid)
+
+
+def par_tile(grid, state_dict):
+    """Tile-parallel serving of the seeded 5000^2 image: fp32 (TF32 off)
+    probabilities, then one warm and one timed bf16 pass (config #5) with
+    its launches."""
+    model = seeded_model("cuda", state_dict)
+    image = _serve_image()
+    with fp32_convolutions():
+        probs = predict_tiled(image, make_predict_step(model), **_serve_kw(grid))
+    bf16_fn = make_predict_step(model, bf16=True)
+    predict_tiled(image, bf16_fn, threshold=0.5, **_serve_kw(grid))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    mask = predict_tiled(image, bf16_fn, threshold=0.5, **_serve_kw(grid))
+    seconds = time.perf_counter() - t0
+    return dict(probs=probs if grid.is_main else None, s_per_image=seconds,
+                launches=kernels.launch_counts(), mask_mean=float(mask.mean()))
+
+
+def rank_worker(cases_file: str, out_dir: str) -> None:
+    """One rank of the parallel phases, run as ``chip_smoke.py --rank-worker
+    CASES OUT`` with the launcher variables set: data parallel (compare,
+    time), tile-parallel serving, then tensor parallel (compare)."""
+    assert maybe_initialize_distributed("cuda", backend="gloo")
+    cases = torch.load(cases_file, weights_only=False)
+    grid = make_grid(1)
+    out = dict(dp_compare=par_compare_step(grid), dp_time=par_time_steps(grid))
+    out["tile"] = par_tile(grid, cases["state_dict"])
+    out["tp_compare"] = par_compare_step(make_grid(2))
+    torch.save(out, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_rank_workers(tmpdir: Path, state_dict) -> list:
+    """Start PAR_RANKS ranks of :func:`rank_worker` on cuda:0 over gloo and
+    wait for them; fails with a rank's output tail when one fails."""
+    cases = tmpdir / "cases.pt"
+    torch.save(dict(state_dict=state_dict), cases)
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(PAR_RANKS), LOCAL_RANK="0")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank-worker",
+                               str(cases), str(tmpdir)], env=dict(env, RANK=str(r)), text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(PAR_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=PAR_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel rank {r} exited {p.returncode}:\n{out[-6000:]}")
+    return [torch.load(tmpdir / f"rank{r}.pt", weights_only=False) for r in range(PAR_RANKS)]
+
+
+def par_verdict(got, one):
+    """A rank's fp32 step against the one process's by PARITY_TOL: loss,
+    gradient errors (median, max), running statistics, and each updated
+    parameter within Adam's :func:`update_bound`."""
+    t = PARITY_TOL
+    errs = _grad_errors(got["grads"], one["grads"])
+    floor = t["grad_floor"] * max(float(w.abs().max()) for w in one["grads"].values())
+    stats_err, params_ratio = 0.0, 0.0
+    for k, v in one["state"].items():
+        if k.endswith(("running_mean", "running_var")):
+            stats_err = max(stats_err, float((got["state"][k] - v).abs().max()))
+        elif k in one["grads"]:
+            g = one["grads"][k]
+            gate = update_bound("adam", g, t["grad_max"] * max(float(g.abs().max()), floor))
+            err = (got["state"][k].double() - v.double()).abs()
+            params_ratio = max(params_ratio, float((err / (gate + t["params_atol"])).max()))
+    summary = _grad_summary(errs)
+    ok = (abs(got["loss"] - one["loss"]) <= t["loss_rtol"] * abs(one["loss"])
+          and summary["median"] <= t["grad_median"] and summary["max"] <= t["grad_max"]
+          and stats_err <= t["stats_atol"] and params_ratio <= 1.0
+          and got["launches"] == STEP_LAUNCHES)
+    return dict(loss=got["loss"], loss_one_process=one["loss"], grad_err=summary,
+                max_running_stat_err=stats_err, param_err_over_gate=params_ratio,
+                launches=got["launches"], local_params=got["local_params"],
+                sharded_tensors=got["sharded"]), bool(ok)
+
+
+def _summed(launches) -> dict:
+    """The ranks' launch counts added, kernel by kernel (zeros kept)."""
+    launches = list(launches)
+    return {k: sum(c[k] for c in launches) for k in launches[0]}
+
+
+def phase_parallel(smi: str, state_dict, tmpdir: Path):
+    """train_dp (a), train_tp and serve_tile_parallel: the one process's
+    references here, then PAR_RANKS ranks on the card (module docstring)."""
+    one = par_compare_step(Grid())
+    model = seeded_model("cuda", state_dict)
+    with fp32_convolutions():
+        probs_one = predict_tiled(_serve_image(), make_predict_step(model), **_serve_kw(None))
+    del model
+    torch.cuda.empty_cache()
+    ranks = run_rank_workers(tmpdir, state_dict)
+    counts = {}
+
+    dp = [par_verdict(r["dp_compare"], one) for r in ranks]
+    timed = [r["dp_time"] for r in ranks]
+    per_rank = {k: v * PAR_STEPS for k, v in STEP_LAUNCHES.items()}
+    ok = all(o for _, o in dp) and all(t["launches"] == per_rank and np.isfinite(t["losses"]).all()
+                                      for t in timed)
+    counts["train_dp"] = _summed(t["launches"] for t in timed)
+    emit("train_dp", ranks=PAR_RANKS, backend="gloo", device="cuda:0 (both ranks)",
+         global_batch=TRAIN_BATCH, compare=[f for f, _ in dp], one_process_loss=one["loss"],
+         timed=[{k: v for k, v in t.items()} for t in timed], expected_launches_per_rank=per_rank,
+         ms_per_step_per_rank=[t["ms_per_step"] for t in timed], card=smi, tolerance=PARITY_TOL,
+         ok=ok)
+    if not ok:
+        raise AssertionError("train_dp checks failed")
+
+    tp = [par_verdict(r["tp_compare"], one) for r in ranks]
+    full = sum(p.numel() for p in seeded_model("cpu").parameters())
+    ok = all(o for _, o in tp) and all(f["local_params"] < 0.6 * full and f["sharded_tensors"] > 100
+                                      for f, _ in tp)
+    counts["train_tp"] = _summed(r["tp_compare"]["launches"] for r in ranks)
+    emit("train_tp", ranks=PAR_RANKS, model_parallel=PAR_RANKS, backend="gloo",
+         compare=[f for f, _ in tp], full_params=full, tolerance=PARITY_TOL, ok=ok)
+    if not ok:
+        raise AssertionError("train_tp checks failed")
+
+    tiles = [r["tile"] for r in ranks]
+    err = float(np.abs(tiles[0]["probs"] - probs_one).max())
+    passes = -(-len(ImageSlicer((IMAGE_SIDE, IMAGE_SIDE), PATCH, PATCH // 2).crops) // (BATCH // 8))
+    expected = {k: v * passes for k, v in EVAL_LAUNCHES.items()}
+    ok = err <= 1e-4 and all(t["launches"] == expected for t in tiles)
+    counts["serve_tile_parallel"] = _summed(t["launches"] for t in tiles)
+    emit("serve_tile_parallel", ranks=PAR_RANKS, image=IMAGE_SIDE, patch=PATCH, batch=BATCH,
+         tta=True, max_prob_err_fp32=err, atol=1e-4,
+         s_per_image_bf16=[t["s_per_image"] for t in tiles], launches=[t["launches"] for t in tiles],
+         expected_launches_per_rank=expected, card=smi, ok=ok)
+    if not ok:
+        raise AssertionError("serve_tile_parallel checks failed")
+    return counts
+
+
+def phase_train_dp_cli(step_ms: float, tmpdir: Path):
+    """train_dp (b): one rank through the train CLI's own NCCL start, the
+    launcher variables set (world 1), 4 shapes-device steps."""
+    launch = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                  MASTER_PORT=str(_free_port()))
+    saved = {k: os.environ.get(k) for k in launch}
+    os.environ.update(launch)
+    backends = []
+    try:
+        _, out = cli_run("dp_nccl", CLI_ARGS + ["-d", "shapes-device", "-s", "4", "-e", "1",
+                                                "--experiments-dir", str(tmpdir / "dp")],
+                         4, 1, step_ms, main=lambda argv: train_cli.main(
+                             argv, model_initializer=lambda m, a: backends.append(
+                                 dist.get_backend())))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    ok = backends == ["nccl"] and not dist.is_initialized()
+    emit("train_dp_cli", run=out, backend=backends, ok=ok)
+    if not ok:
+        raise AssertionError("train_dp_cli checks failed")
+    return out["launches"]
+
+
+def _torchvision_resnet34(path: Path, seed: int) -> None:
+    """A random torchvision-format ResNet-34 file with its ``fc`` head."""
+    g = torch.Generator().manual_seed(seed)
+    enc = resnet34()
+    sd = {}
+    for k, v in enc.state_dict().items():
+        if k.endswith("running_var"):
+            sd[k] = 0.5 + torch.rand(v.shape, generator=g)
+        elif k.endswith(("running_mean", "bn1.bias", "bn2.bias")):
+            sd[k] = 0.1 * torch.randn(v.shape, generator=g)
+        else:
+            sd[k] = v
+    sd["fc.weight"], sd["fc.bias"] = torch.zeros(1000, 512), torch.zeros(1000)
+    torch.save({"state_dict": sd}, path)
+
+
+def phase_serve_ckpt(state_dict, tmpdir: Path):
+    """LinkNet34 with random torchvision-format encoder weights, written as
+    segtpu's ``.ckpt`` directory and as a ``.pth``: the card's model loaded
+    the submit CLI's way (``--encoder-weights``, then ``-c <dir>.ckpt``)
+    against the CPU's from the ``.pth`` (fp32 logits, atol 1e-3); then
+    ``submit_cli -c <dir>.ckpt --encoder-weights`` serves one 1024^2 image
+    (bf16, batch 64, TTA), its B2 launches counted."""
+    import cv2
+
+    enc = tmpdir / "resnet34.pth"
+    _torchvision_resnet34(enc, SEED + 70)
+    cpu_model = seeded_model("cpu", state_dict)
+    install_encoder_weights("linknet34", cpu_model, str(enc))
+    save_snapshot(str(tmpdir / "w.pth"), cpu_model, epoch=0, loss=0.0)
+    ckpt = tmpdir / "linknet34_checkpoint.ckpt"
+    save_flax_snapshot(str(ckpt), "linknet34", cpu_model.state_dict(), epoch=0, loss=0.0,
+                       train_history={})
+    card_model = get_model("linknet34", patch_size=PATCH, device="cuda")
+    install_encoder_weights("linknet34", card_model, str(enc))
+    submit_cli.load_checkpoint(card_model, "linknet34", str(ckpt))
+    pth_model = get_model("linknet34", patch_size=PATCH, device="cpu")
+    pth_model.load_state_dict(load_snapshot(str(tmpdir / "w.pth"))[0])
+    x = torch.from_numpy(np.random.default_rng(SEED + 71).standard_normal((2, 3, PATCH, PATCH),
+                                                                           np.float32) * 0.5)
+    card_model.eval()
+    pth_model.eval()
+    with fp32_convolutions(), torch.inference_mode():
+        got = card_model(x.cuda().contiguous(memory_format=torch.channels_last)).cpu()
+        want = pth_model(x)
+    logit_err = float((got - want).abs().max())
+
+    side = 1024
+    (tmpdir / "data" / "images").mkdir(parents=True)
+    image = np.random.default_rng(SEED + 72).integers(0, 256, (side, side, 3), dtype=np.uint8)
+    cv2.imwrite(str(tmpdir / "data" / "images" / "img.png"), image)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    submit_cli.main(["-m", "linknet34", "-c", str(ckpt), "--encoder-weights", str(enc),
+                     "-p", str(PATCH), "-b", str(BATCH), "-dd", str(tmpdir / "data"), "--bf16",
+                     "--submits-dir", str(tmpdir / "out")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    mask = cv2.imread(str(tmpdir / "out" / f"inria_linknet34_{PATCH}_rgb" / "img.tif"),
+                      cv2.IMREAD_UNCHANGED)
+    passes = -(-len(ImageSlicer((side, side), PATCH, PATCH // 2).crops) // (BATCH // 8))
+    expected = {k: v * passes for k, v in EVAL_LAUNCHES.items()}
+    ok = (logit_err <= 1e-3 and np.isfinite(got).all().item() and mask is not None
+          and mask.shape == (side, side) and launches == expected)
+    emit("serve_ckpt", logit_err_card_vs_cpu_pth=logit_err, atol=1e-3, ckpt_files=sorted(
+        f.name for f in ckpt.iterdir()), submit_s=seconds, launches=launches,
+         expected_launches=expected, mask_shape=None if mask is None else list(mask.shape), ok=ok)
+    if not ok:
+        raise AssertionError("serve_ckpt checks failed")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of segtpu_torch on one GPU")
     parser.add_argument("--ab-out", default=None,
                         help="Write train_nuclei's comparison.md and the port's CSVs here")
+    parser.add_argument("--rank-worker", nargs=2, metavar=("CASES", "OUT"), default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.rank_worker is not None:
+        rank_worker(*args.rank_worker)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
         return 2
@@ -2673,6 +3067,14 @@ def main(argv=None) -> int:
     counts = {"serve": phase_serve(state_dict)}
     phase_train_parity()
     counts["train"], step_ms = phase_train()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        counts.update(phase_parallel(smi, state_dict, Path(tmp)))
+    with tempfile.TemporaryDirectory() as tmp:
+        counts["train_dp_cli"] = phase_train_dp_cli(step_ms, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        counts["serve_ckpt"] = phase_serve_ckpt(state_dict, Path(tmp))
+    torch.cuda.empty_cache()
     phase_zf_unet_parity()
     counts["train_zf_unet"] = phase_train_zf_unet(smi)
     counts["train_unet_abn"] = phase_train_unet_abn(smi)

@@ -438,3 +438,44 @@ def state_dict_from_entries(entries: List[Entry], params: Mapping,
         if "bias" in node:
             sd[tp + ".bias"] = _tensor(node["bias"])
     return sd
+
+
+def jax_from_state_dict(model_name: str, state_dict: Mapping[str, torch.Tensor]
+                        ) -> Tuple[Dict, Dict]:
+    """The inverse of :func:`state_dict_from_jax`: segtpu's ``params`` and
+    ``batch_stats`` trees (nested dicts of float32 numpy arrays, NHWC
+    kernels) of ``model_name`` from a port ``state_dict``."""
+    name = model_name.lower()
+    if name not in _ENTRY_BUILDERS:
+        raise ValueError(f"no mapping for model {model_name!r}; "
+                         f"mapped: {sorted(_ENTRY_BUILDERS)}")
+    params: Dict = {}
+    stats: Dict = {}
+
+    def put(tree, path, leaves):
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node.update(leaves)
+
+    def arr(key):
+        return state_dict[key].detach().cpu().float().numpy()
+
+    for kind, tp, path in _ENTRY_BUILDERS[name]():
+        optional = kind.endswith("?")
+        kind = kind.rstrip("?")
+        if tp + ".weight" not in state_dict:
+            if optional:
+                continue
+            raise KeyError(tp + ".weight")
+        if kind in ("bn", "abn"):
+            put(params, path, {"scale": arr(tp + ".weight"), "bias": arr(tp + ".bias")})
+            put(stats, path, {"mean": arr(tp + ".running_mean"), "var": arr(tp + ".running_var")})
+            continue
+        w = arr(tp + ".weight")
+        leaves = {"kernel": np.ascontiguousarray(w.T if kind == "linear"
+                                                 else np.transpose(w, (2, 3, 1, 0)))}
+        if tp + ".bias" in state_dict:
+            leaves["bias"] = arr(tp + ".bias")
+        put(params, path, leaves)
+    return params, stats

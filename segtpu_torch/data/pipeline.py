@@ -4,8 +4,9 @@ device ahead of the step that uses them.
 
 The reference hides its CPU augmentation cost in DataLoader worker processes
 (reference torch_train.py:384-385). Here, as in segtpu, the per-sample work
-is NumPy in threads. Loading from several processes waits for slice 5 of
-``ROADMAP.md``.
+is NumPy in threads. Under data parallelism each process builds only its
+slice of every global batch (``process_index`` / ``process_count``, as
+segtpu/data/pipeline.py:45-71,107 does).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from segtpu_torch.augment.host import bind_sample_rng
 from segtpu_torch.device import DeviceLike, resolve_device
+from segtpu_torch.parallel import process_slot
 
 
 class DataLoader:
@@ -36,11 +38,19 @@ class DataLoader:
     (:class:`~segtpu_torch.augment.host.bind_sample_rng`), so host
     augmentation draws do not depend on thread timing or the worker count.
     Index order and arrays are those of segtpu's loader for the same
-    arguments."""
+    arguments.
+
+    Multi-process: every process walks the same seeded global order and
+    builds only its contiguous slice of each global batch of
+    ``batch_size``: the ``batch_size // process_count`` samples from offset
+    ``process_index * batch_size // process_count``. The default is the
+    default process group's rank and size, or 0 and 1 without one; a data
+    parallel run with a model axis passes its data rank and data size."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, drop_last: bool = True,
                  workers: int = 4, seed: int = 0, prefetch_batches: int = 4,
-                 sample_seed: int = None):
+                 sample_seed: int = None, process_index: int = None,
+                 process_count: int = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -50,6 +60,8 @@ class DataLoader:
         self.prefetch_batches = prefetch_batches
         self.sample_seed = sample_seed
         self.epoch = 0
+        self.process_index, self.process_count, self.local_batch_size = process_slot(
+            batch_size, process_index, process_count)
 
     def __len__(self):
         n = len(self.dataset)
@@ -83,7 +95,8 @@ class DataLoader:
             pending: collections.deque = collections.deque()
 
             def submit(b):
-                idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+                start = b * self.batch_size + self.process_index * self.local_batch_size
+                idxs = order[start:start + self.local_batch_size]
                 pending.append([ex.submit(self._fetch, epoch, int(i)) for i in idxs])
 
             warm = min(self.prefetch_batches, n_batches)

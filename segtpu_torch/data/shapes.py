@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from segtpu_torch.device import DeviceLike, resolve_device
+from segtpu_torch.parallel import process_slot
 
 
 def gen_random_image(patch_size: int, rng: np.random.RandomState):
@@ -193,8 +194,9 @@ class DeviceShapesSet:
         return DeviceShapesSet(min(self.n, n), self.patch_size, seed=self.seed,
                                fixed=self.fixed, grayscale=self.grayscale)
 
-    def loader(self, batch_size: int, device: DeviceLike = None) -> "DeviceShapesLoader":
-        return DeviceShapesLoader(self, batch_size, device)
+    def loader(self, batch_size: int, device: DeviceLike = None, process_index: int = None,
+               process_count: int = None) -> "DeviceShapesLoader":
+        return DeviceShapesLoader(self, batch_size, device, process_index, process_count)
 
 
 class DeviceShapesLoader:
@@ -206,12 +208,20 @@ class DeviceShapesLoader:
     nothing is copied from the host, so no batch waits for the card. With
     ``grayscale`` the luma is taken from the raw 0-255 RGB and then
     normalised with the grayscale ImageNet statistics, the host path's order
-    (``ShapesDataset.__getitem__``)."""
+    (``ShapesDataset.__getitem__``).
 
-    def __init__(self, spec: DeviceShapesSet, batch_size: int, device: DeviceLike = None):
+    Multi-process (``process_index`` / ``process_count``, defaults as
+    :class:`~segtpu_torch.data.pipeline.DataLoader`'s): each process makes
+    the whole global batch on its device and keeps its contiguous slice, so
+    the slices put together are the one-process batch bit for bit."""
+
+    def __init__(self, spec: DeviceShapesSet, batch_size: int, device: DeviceLike = None,
+                 process_index: int = None, process_count: int = None):
         self.spec = spec
         self.batch_size = batch_size
         self.epoch = 0
+        self.process_index, self.process_count, self.local_batch_size = process_slot(
+            batch_size, process_index, process_count)
         self.gen = DeviceShapes(spec.patch_size, normalize=not spec.grayscale, device=device)
         self.generator = torch.Generator(device=self.gen.device)
         self.gray = torch.as_tensor(GRAY_WEIGHTS, device=self.gen.device).view(1, 3, 1, 1)
@@ -229,6 +239,9 @@ class DeviceShapesLoader:
             if self.spec.grayscale:
                 x = (x * self.gray).sum(1, keepdim=True)
                 x = (x / 255.0 - IMAGENET_GRAY_MEAN) / IMAGENET_GRAY_STD
+            if self.process_count > 1:
+                lo = self.process_index * self.local_batch_size
+                x, y = x[lo:lo + self.local_batch_size], y[lo:lo + self.local_batch_size]
             yield x, y
 
 

@@ -10,6 +10,13 @@ run on the device too, and only the mask comes back.
 
 ``predict_fn(x: (N, C, H, W)) -> (N, 1, H, W)`` sigmoid probabilities on
 the device of ``x`` — typically :func:`segtpu_torch.train.state.make_predict_step`.
+
+Tile-parallel (``grid`` with a data axis of N ranks; segtpu/inference.py:159-215,
+351-365): each chunk is rounded up to a multiple of N tiles and rank r runs
+the r-th N-th of every chunk; each rank folds its weighted tiles into the
+canvas, one all-reduce adds the ranks' canvases, and every rank divides by
+the weights; the caller's rank 0 thresholds and writes. Without a grid, or
+with one rank, it is the one-process path.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from segtpu_torch.augment import (
     unpad,
 )
 from segtpu_torch.device import DeviceLike, resolve_device
+from segtpu_torch.parallel import Grid, all_reduce_
 from segtpu_torch.tiles import ImageSlicer
 
 
@@ -116,12 +124,15 @@ class _Prepared:
     dropped before the merge)."""
 
     def __init__(self, image: np.ndarray, test_transform, patch_size: int,
-                 batch_size: int, tta: bool, weight: str):
+                 batch_size: int, tta: bool, weight: str, n_ranks: int = 1):
         image, self.affine = _host_image(image, test_transform)
         self.slicer = ImageSlicer(image.shape, patch_size, patch_size // 2, weight=weight)
         self.padded = self.slicer.pad(image)
         self.n_tiles = len(self.slicer.crops)
         self.chunk = max(1, batch_size // 8) if tta else batch_size
+        # tile-parallel: a whole number of tiles per rank in every chunk
+        self.chunk = max(self.chunk, n_ranks)
+        self.chunk += (-self.chunk) % n_ranks
         self.n_chunks = -(-self.n_tiles // self.chunk)
         pad = self.n_chunks * self.chunk - self.n_tiles
         crops = self.slicer.crops + [self.slicer.crops[0]] * pad
@@ -139,45 +150,64 @@ def _gather_tiles(image: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, patch
 
 
 def _dispatch(prep: _Prepared, predict_fn: Callable, tta: bool, threshold: Optional[float],
-              device: torch.device) -> torch.Tensor:
-    """Device half: upload, chunked sweep, merge and threshold. Returns the
-    (H, W) mask on the device without waiting for it."""
+              device: torch.device, grid: Optional[Grid] = None) -> torch.Tensor:
+    """Device half: upload, chunked sweep (this rank's share of each chunk
+    under a grid), merge and threshold. Returns the (H, W) mask on the
+    device without waiting for it."""
+    n, rank = (grid.data_size, grid.data_rank) if grid is not None else (1, 0)
     image = _upload(prep.padded, prep.affine, device)
     ys = torch.from_numpy(prep.ys).to(device)
     xs = torch.from_numpy(prep.xs).to(device)
     patch = prep.slicer.tile_size
+    share = prep.chunk // n
     preds = []
     for i in range(prep.n_chunks):
-        sl = slice(i * prep.chunk, (i + 1) * prep.chunk)
+        sl = slice(i * prep.chunk + rank * share, i * prep.chunk + (rank + 1) * share)
         x = _gather_tiles(image, ys[sl], xs[sl], patch)
         if tta:
             x = tta_d4_aug_batch(x)
         y = predict_fn(x)
         preds.append(tta_d4_deaug_batch(y) if tta else y)
-    merged = prep.slicer.merge_device(torch.cat(preds)[:prep.n_tiles])[0]
+    preds = torch.cat(preds)
+    reduce_fn = None
+    if n > 1:
+        # this rank's tiles in their places, zeros in the others' (their
+        # weighted sums come through the all-reduce)
+        tail = preds.shape[1:]
+        full = preds.new_zeros((prep.n_chunks, n, share) + tail)
+        full[:, rank] = preds.view((prep.n_chunks, share) + tail)
+        preds = full.view((-1,) + tail)
+        reduce_fn = lambda acc: all_reduce_([acc], grid.data_group)  # noqa: E731
+    merged = prep.slicer.merge_device(preds[:prep.n_tiles], reduce_fn)[0]
     if threshold is not None:
         return (merged > threshold).to(torch.uint8) * 255
     return merged
 
 
+def _ranks(grid: Optional[Grid]) -> int:
+    return 1 if grid is None else grid.data_size
+
+
 def predict_tiled(image: np.ndarray, predict_fn: Callable, test_transform=None,
                   patch_size: int = 224, batch_size: int = 8, tta: bool = True,
                   weight: str = "pyramid", threshold: Optional[float] = None,
-                  device: DeviceLike = None) -> np.ndarray:
+                  device: DeviceLike = None, grid: Optional[Grid] = None) -> np.ndarray:
     """Sliding-window tiled prediction with weighted fusion and D4 TTA
     (reference predict_tiled, inria_submit.py:237-257: step = patch/2,
     pyramid weights). Returns the HW float32 probabilities, or the uint8
-    0/255 mask when ``threshold`` is given."""
+    0/255 mask when ``threshold`` is given. ``grid``: tile-parallel over its
+    data ranks (module docstring); every rank returns the whole result."""
     dev = resolve_device(device)
-    prep = _Prepared(image, test_transform, patch_size, batch_size, tta, weight)
-    return _dispatch(prep, predict_fn, tta, threshold, dev).cpu().numpy()
+    prep = _Prepared(image, test_transform, patch_size, batch_size, tta, weight, _ranks(grid))
+    return _dispatch(prep, predict_fn, tta, threshold, dev, grid).cpu().numpy()
 
 
 def predict_tiled_stream(items: Iterable[Tuple[object, Callable[[], np.ndarray]]],
                          predict_fn: Callable, test_transform=None,
                          patch_size: int = 224, batch_size: int = 8, tta: bool = True,
                          weight: str = "pyramid", threshold: Optional[float] = None,
-                         depth: int = 1, device: DeviceLike = None):
+                         depth: int = 1, device: DeviceLike = None,
+                         grid: Optional[Grid] = None):
     """Pipelined :func:`predict_tiled` over many images: yields ``(key, mask)``
     in input order.
 
@@ -185,7 +215,8 @@ def predict_tiled_stream(items: Iterable[Tuple[object, Callable[[], np.ndarray]]
     producer thread loads and prepares image i+1 on the host (NumPy only)
     while this thread uploads and launches the sweep of image i; up to
     ``depth`` masks stay on the device before the oldest is fetched.
-    ``depth=0`` is the serial path."""
+    ``depth=0`` is the serial path. ``grid``: tile-parallel, as
+    :func:`predict_tiled`."""
     dev = resolve_device(device)
     items = list(items)
     if not items:
@@ -207,7 +238,7 @@ def predict_tiled_stream(items: Iterable[Tuple[object, Callable[[], np.ndarray]]
         try:
             for key, load_fn in items:
                 prep = _Prepared(load_fn(), test_transform, patch_size, batch_size,
-                                 tta, weight)
+                                 tta, weight, _ranks(grid))
                 if not put((key, prep, None)):
                     return
         except BaseException as e:  # handed to the consumer, which raises it
@@ -221,7 +252,7 @@ def predict_tiled_stream(items: Iterable[Tuple[object, Callable[[], np.ndarray]]
             key, prep, error = prepped.get()
             if error is not None:
                 raise error
-            inflight.append((key, _dispatch(prep, predict_fn, tta, threshold, dev)))
+            inflight.append((key, _dispatch(prep, predict_fn, tta, threshold, dev, grid)))
             if len(inflight) > depth:
                 k, m = inflight.pop(0)
                 yield k, m.cpu().numpy()

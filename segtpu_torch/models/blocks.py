@@ -17,7 +17,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from segtpu_torch.models.layers import ABN, Conv, GlobalAvgPool2d, global_avg_pool_2d
+from segtpu_torch.models.layers import ABN, Conv, Dropout, GlobalAvgPool2d, global_avg_pool_2d
 
 __all__ = ["IdentityResidualBlock", "DenseModule", "GlobalAvgPool2d", "global_avg_pool_2d"]
 
@@ -56,7 +56,7 @@ class IdentityResidualBlock(nn.Module):
                               groups=groups, bias=False)
             self.bn3 = ABN(channels[1])
             self.conv3 = Conv(channels[1], channels[2], 1, bias=False)
-        self.dropout = None if dropout is None else nn.Dropout(dropout)
+        self.dropout = None if dropout is None else Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bn1 = self.bn1(x)

@@ -15,6 +15,13 @@ explicit ``torch.Generator`` (``reset_parameters``).
 Under :func:`remat` a block's forward runs again in the backward pass; the
 running statistics are updated by the first forward only, as flax's
 ``nn.remat`` keeps only the first forward's ``batch_stats``.
+
+Data parallel: a normalisation layer whose ``process_group`` is set
+(:func:`set_process_group`, segtpu's ``axis_name``) normalises with the
+statistics of the global batch over that group, and its running statistics
+take the global mean and unbiased variance. The dropouts draw the mask of the
+global batch and keep their rank's rows (:func:`set_data_shard`), so N ranks
+draw the masks one process draws on the same global batch.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from segtpu_torch.ops import abn as abn_ops
+from segtpu_torch.parallel import group_size
 
 # Set while torch.utils.checkpoint recomputes a block (see :func:`remat`), in
 # the thread that recomputes it.
@@ -61,10 +69,11 @@ def _update_running_stats(module: nn.Module, x: torch.Tensor, mean: torch.Tensor
                           var: torch.Tensor) -> None:
     """``running = (1 - momentum) * running + momentum * batch``, with the
     unbiased batch variance in the running var (segtpu layers.py:116-120);
-    nothing while :func:`remat` recomputes a block."""
+    nothing while :func:`remat` recomputes a block. Under a process group
+    the batch is the global one (each rank holds an equal shard)."""
     if getattr(_recompute, "on", False):
         return
-    count = x.numel() // x.shape[1]
+    count = x.numel() // x.shape[1] * group_size(module.process_group)
     m = module.momentum
     with torch.no_grad():
         module.running_mean.mul_(1 - m).add_(mean, alpha=m)
@@ -83,9 +92,11 @@ class BatchNormTorch(nn.Module):
     ``BatchNormTorch``): batch statistics through :class:`~segtpu_torch.ops.abn.BNTrain`
     in training mode, the running statistics in eval mode."""
 
-    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 process_group=None):
         super().__init__()
         self.features, self.eps, self.momentum = features, eps, momentum
+        self.process_group = process_group
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -94,7 +105,8 @@ class BatchNormTorch(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            y, mean, var = abn_ops.bn_train(x, self.weight, self.bias, self.eps)
+            y, mean, var = abn_ops.bn_train(x, self.weight, self.bias, self.eps,
+                                            self.process_group)
             _update_running_stats(self, x, mean, var)
             return y
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
@@ -111,8 +123,9 @@ class ABN(BatchNormTorch):
     fused, on the running statistics."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
-                 activation: str = abn_ops.ACT_LEAKY_RELU, slope: float = 0.01):
-        super().__init__(features, eps, momentum)
+                 activation: str = abn_ops.ACT_LEAKY_RELU, slope: float = 0.01,
+                 process_group=None):
+        super().__init__(features, eps, momentum, process_group)
         abn_ops._check_act(activation)
         self.activation, self.slope = activation, slope
 
@@ -131,10 +144,12 @@ class InPlaceABN(nn.Module):
     B2; backward B3 from the saved output, never the input)."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
-                 activation: str = abn_ops.ACT_LEAKY_RELU, slope: float = 0.01):
+                 activation: str = abn_ops.ACT_LEAKY_RELU, slope: float = 0.01,
+                 process_group=None):
         super().__init__()
         self.features, self.eps, self.momentum = features, eps, momentum
         self.activation, self.slope = activation, slope
+        self.process_group = process_group
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -144,7 +159,7 @@ class InPlaceABN(nn.Module):
         if self.training:
             z, mean, var = abn_ops.fused_abn(
                 x, self.weight, self.bias, training=True, eps=self.eps,
-                activation=self.activation, slope=self.slope)
+                activation=self.activation, slope=self.slope, group=self.process_group)
             _update_running_stats(self, x, mean, var)
             return z
         return abn_ops.fused_abn(
@@ -257,10 +272,64 @@ def float_logits(out: torch.Tensor) -> torch.Tensor:
     return out.to(torch.promote_types(out.dtype, torch.float32))
 
 
-# segtpu's channel ``Dropout2d`` with ``groups=1``: one Bernoulli draw per
-# (sample, channel), kept values scaled by 1 / (1 - p), identity in eval mode.
-# ``groups > 1`` belongs to s2d execution, which is not ported.
-Dropout2d = nn.Dropout2d
+def _global_batch_dropout(x: torch.Tensor, p: float, shard: Tuple[int, int],
+                          feature: bool) -> torch.Tensor:
+    """``x * mask / (1 - p)`` with the mask of the global batch: the rows of
+    ``shard = (data rank, data size)`` of a Bernoulli(1 - p) draw of shape
+    ``(N * size, C, 1, 1)`` (feature dropout) or ``(N * size,) + x.shape[1:]``,
+    in ``x``'s dtype. For one rank it is torch's own feature dropout,
+    ``noise.bernoulli_(1 - p).div_(1 - p)`` on the generator of ``x``'s
+    device, bit for bit."""
+    rank, size = shard
+    n = x.shape[0]
+    shape = (n * size,) + ((x.shape[1],) + (1,) * (x.dim() - 2) if feature else x.shape[1:])
+    noise = torch.empty(shape, dtype=x.dtype, device=x.device)
+    noise.bernoulli_(1 - p)
+    noise.div_(1 - p)
+    return x * noise[rank * n:(rank + 1) * n]
+
+
+class Dropout2d(nn.Dropout2d):
+    """segtpu's channel ``Dropout2d`` with ``groups=1``: one Bernoulli draw per
+    (sample, channel), kept values scaled by 1 / (1 - p), identity in eval
+    mode or at p = 0. The draw is that of the global batch
+    (:func:`set_data_shard`). ``groups > 1`` belongs to s2d execution, which
+    is not ported."""
+
+    data_shard: Tuple[int, int] = (0, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        return _global_batch_dropout(x, self.p, self.data_shard, feature=True)
+
+
+class Dropout(nn.Dropout):
+    """Element dropout (``nn.Dropout``) drawn as :class:`Dropout2d` is: the
+    mask of the global batch, this rank's rows."""
+
+    data_shard: Tuple[int, int] = (0, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        return _global_batch_dropout(x, self.p, self.data_shard, feature=False)
+
+
+def set_data_shard(model: nn.Module, data_rank: int, data_size: int) -> None:
+    """Make every dropout of ``model`` draw the global batch's mask and keep
+    the rows of data rank ``data_rank`` of ``data_size``."""
+    for m in model.modules():
+        if isinstance(m, (Dropout2d, Dropout)):
+            m.data_shard = (data_rank, data_size)
+
+
+def set_process_group(model: nn.Module, group) -> None:
+    """Sync BatchNorm: every normalisation layer of ``model`` takes its
+    training statistics over ``group`` (None: the local batch)."""
+    for m in model.modules():
+        if isinstance(m, (BatchNormTorch, InPlaceABN)):
+            m.process_group = group
 
 
 def reset_parameters(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:

@@ -15,8 +15,8 @@ Attribute names are the reference's state_dict keys: ``firstconv``,
 InPlaceABN layers of the decoder run the B2 kernel; in training mode they
 and the 36 BatchNorms of the encoder take their batch statistics from B1,
 the BatchNorm backward runs B1 and the InPlaceABN backward B3.
-``finaldrop1`` is torch's ``nn.Dropout2d(0.5)`` (channel dropout, training
-mode only).
+``finaldrop1`` is ``layers.Dropout2d(0.5)`` (torch's channel dropout,
+training mode only).
 """
 
 from __future__ import annotations
@@ -26,8 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from segtpu_torch.models.encoders.resnet import resnet34
-from segtpu_torch.models.layers import (BatchNormTorch, Conv, ConvTranspose2dTorch, InPlaceABN,
-                                        float_logits)
+from segtpu_torch.models.layers import (BatchNormTorch, Conv, ConvTranspose2dTorch, Dropout2d,
+                                        InPlaceABN, float_logits)
 
 
 class DecoderBlockLinkNet(nn.Module):
@@ -90,7 +90,7 @@ class LinkNet34(nn.Module):
         self.decoder1 = DecoderBlockLinkNet(filters[0], filters[0], plain_bn)
 
         # the dilated variant has no dropout and a ReLU head (dilated_linknet.py:66-72, 94)
-        self.finaldrop1 = None if dilated else nn.Dropout2d(0.5)
+        self.finaldrop1 = None if dilated else Dropout2d(0.5)
         self.finaldeconv1 = ConvTranspose2dTorch(filters[0], 32, 3, 2)
         self.finalconv2 = Conv(32, 32, 3)
         self.finalconv3 = Conv(32, num_classes, 2, padding=1)

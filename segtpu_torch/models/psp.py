@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from segtpu_torch.models.encoders.resnet import resnet101
-from segtpu_torch.models.layers import BatchNormTorch, Conv, float_logits, upsample_bilinear
+from segtpu_torch.models.layers import BatchNormTorch, Conv, Dropout, float_logits, upsample_bilinear
 
 PSP_MOMENTUM = 0.95
 
@@ -59,7 +59,7 @@ class PSPNet(nn.Module):
         self.ppm = PyramidPoolingModule(2048, 512)
         self.final = nn.Sequential(
             Conv(2048 + 4 * 512, 512, 3, padding=1, bias=False),
-            BatchNormTorch(512, momentum=PSP_MOMENTUM), nn.ReLU(inplace=True), nn.Dropout(0.1),
+            BatchNormTorch(512, momentum=PSP_MOMENTUM), nn.ReLU(inplace=True), Dropout(0.1),
             Conv(512, num_classes, 1))
         self.use_aux = use_aux
         self.aux_logits = Conv(1024, num_classes, 1) if use_aux else None

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from segtpu_torch.models.layers import BatchNormTorch, Conv, global_avg_pool_2d
+from segtpu_torch.models.layers import BatchNormTorch, Conv, Dropout, global_avg_pool_2d
 
 
 class WideBasic(nn.Module):
@@ -35,7 +35,7 @@ class WideBasic(nn.Module):
         super().__init__()
         self.bn1 = BatchNormTorch(in_planes)
         self.conv1 = Conv(in_planes, planes, 3, padding=1)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.bn2 = BatchNormTorch(planes)
         self.conv2 = Conv(planes, planes, 3, stride=stride, padding=1)
         self.shortcut = None

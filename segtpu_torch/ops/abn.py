@@ -36,6 +36,16 @@ lists, so ``custom_fwd``/``custom_bwd`` would change nothing.
 
 Layout: NCHW, channel dim 1, contiguous or channels_last; a 2-D input is a
 row-major [M, C] view.
+
+Sync BatchNorm (segtpu's ``axis_name``, segtpu/ops/abn.py:212-220,
+:264-266, :310-313, :396-399): given a process group, both Functions
+reduce the local shard with the kernels as above and then add the ranks'
+partials with one ``all_reduce`` of one packed fp32 buffer per call,
+``[sum x | sum x^2 | n]`` in the forward and ``[sum g | sum g*x]`` (B1's
+pair) or ``[sum dy | sum xhat*dy]`` (B3) in the backward. The statistics and
+the ``dx`` pass use the global sums; the weight and bias gradients stay the
+local shard's, which the gradient all-reduce of the data-parallel step
+adds.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from typing import Optional, Tuple
 import torch
 
 from segtpu_torch.ops import kernels
+from segtpu_torch.parallel import all_reduce_
 
 ACT_LEAKY_RELU = "leaky_relu"
 ACT_ELU = "elu"
@@ -128,11 +139,25 @@ def channel_sums(a: torch.Tensor, b: Optional[torch.Tensor] = None):
     return _on_device("channel_sums", a, kernels.channel_sums_cuda, channel_sums_plain, b)
 
 
-def batch_mean_var(x: torch.Tensor):
+def _global_sums(group, *sums: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``sums`` added over ``group`` in one all-reduce of one packed buffer;
+    ``sums`` themselves for no group."""
+    if group is None:
+        return sums
+    buf = torch.cat([s.reshape(-1) for s in sums])
+    all_reduce_([buf], group)
+    return tuple(buf.split([s.numel() for s in sums]))
+
+
+def batch_mean_var(x: torch.Tensor, group=None):
     """Per-channel biased batch mean and variance in fp32 over every
-    non-channel dim, from one B1 pass (segtpu ``batch_mean_var``)."""
+    non-channel dim, from one B1 pass (segtpu ``batch_mean_var``); over the
+    ranks of ``group`` (sync BatchNorm) when one is given."""
     s, q = channel_sums(x)
     count = x.numel() // x.shape[1]
+    if group is not None:
+        s, q, n = _global_sums(group, s, q, s.new_full((1,), count))
+        count = n
     mean = s / count
     return mean, q / count - mean * mean
 
@@ -220,14 +245,15 @@ class BNTrain(torch.autograd.Function):
     ``dx = w*g - w*d_beta/N - w*rstd*(x - mean)*d_gamma/N`` elementwise."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps: float):
+    def forward(ctx, x, weight, bias, eps: float, group=None):
         x = _dense(x)
-        mean, var = batch_mean_var(x)
+        mean, var = batch_mean_var(x, group)
         rstd = torch.rsqrt(var + eps)
         scale = weight.to(rstd.dtype) * rstd
         shift = bias.to(rstd.dtype) - mean * scale
         y = abn_norm_act(x, scale, shift, ACT_NONE, 0.0)
         ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -239,12 +265,17 @@ class BNTrain(torch.autograd.Function):
         d_bias, sgx = channel_sums(g, x)
         d_weight = (sgx - mean * d_bias) * rstd
         w = weight.to(rstd.dtype) * rstd
-        a = w * d_bias / count
-        b2 = w * rstd * d_weight / count
+        all_bias, all_weight = d_bias, d_weight
+        if ctx.group is not None:
+            all_bias, all_sgx, n = _global_sums(ctx.group, d_bias, sgx,
+                                                d_bias.new_full((1,), count))
+            all_weight, count = (all_sgx - mean * all_bias) * rstd, n
+        a = w * all_bias / count
+        b2 = w * rstd * all_weight / count
         view, acc = _channel_view(x), rstd.dtype
         dx = (g.to(acc) * w.view(view) - (x.to(acc) - mean.view(view)) * b2.view(view)
               - a.view(view))
-        return dx.to(x.dtype), d_weight.to(weight.dtype), d_bias.to(weight.dtype), None
+        return dx.to(x.dtype), d_weight.to(weight.dtype), d_bias.to(weight.dtype), None, None
 
 
 class FusedABNTrain(torch.autograd.Function):
@@ -257,14 +288,14 @@ class FusedABNTrain(torch.autograd.Function):
     ``xhat`` rebuilt from ``z``; ``d_gamma = eydz``, ``d_beta = edz``."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps: float, activation: str, slope: float):
+    def forward(ctx, x, gamma, beta, eps: float, activation: str, slope: float, group=None):
         x = _dense(x)
-        mean, var = batch_mean_var(x)
+        mean, var = batch_mean_var(x, group)
         scale = gamma.to(var.dtype) * torch.rsqrt(var + eps)
         shift = beta.to(var.dtype) - mean * scale
         z = abn_norm_act(x, scale, shift, activation, slope)
         ctx.save_for_backward(z, gamma, beta, var)
-        ctx.eps, ctx.activation, ctx.slope = eps, activation, slope
+        ctx.eps, ctx.activation, ctx.slope, ctx.group = eps, activation, slope, group
         ctx.mark_non_differentiable(mean, var)
         return z, mean, var
 
@@ -277,30 +308,38 @@ class FusedABNTrain(torch.autograd.Function):
         acc, view = var.dtype, _channel_view(z)
         gamma_a, beta_a = gamma.to(acc).contiguous(), beta.to(acc).contiguous()
         edz, eydz = abn_bwd_sums(z, g, gamma_a, beta_a, act, slope)
+        all_edz, all_eydz = edz, eydz
+        if ctx.group is not None:
+            all_edz, all_eydz, count = _global_sums(ctx.group, edz, eydz,
+                                                    edz.new_full((1,), count))
         zf = z.to(acc)
         dy = g.to(acc) * act_grad_from_output(zf, act, slope)
         xhat = (act_invert(zf, act, slope) - beta_a.view(view)) / gamma_a.view(view)
         w = gamma_a * torch.rsqrt(var + ctx.eps)
-        dx = (dy - (edz / count).view(view) - xhat * (eydz / count).view(view)) * w.view(view)
-        return (dx.to(z.dtype), eydz.to(gamma.dtype), edz.to(beta.dtype), None, None, None)
+        dx = (dy - (all_edz / count).view(view) - xhat * (all_eydz / count).view(view)) \
+            * w.view(view)
+        return (dx.to(z.dtype), eydz.to(gamma.dtype), edz.to(beta.dtype), None, None, None, None)
 
 
-def bn_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5):
-    """Training-mode BatchNorm: ``(y, batch mean, batch biased var)``."""
-    return BNTrain.apply(x, weight, bias, eps)
+def bn_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
+             group=None):
+    """Training-mode BatchNorm: ``(y, batch mean, batch biased var)``; the
+    batch is the global one of ``group``'s ranks when a group is given."""
+    return BNTrain.apply(x, weight, bias, eps, group)
 
 
 def fused_abn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
               mean: Optional[torch.Tensor] = None, var: Optional[torch.Tensor] = None,
               training: bool = False, eps: float = 1e-5, activation: str = ACT_LEAKY_RELU,
-              slope: float = 0.01):
+              slope: float = 0.01, group=None):
     """Fused BN + activation (segtpu ``fused_abn``).
 
-    ``training=True``: batch statistics and the from-output backward; returns
-    ``(z, mean, var)`` so the caller can update its running statistics.
+    ``training=True``: batch statistics (over ``group``'s ranks when one is
+    given) and the from-output backward; returns ``(z, mean, var)`` so the
+    caller can update its running statistics.
     ``training=False``: the running ``mean``/``var``; returns ``z``."""
     if training:
-        return FusedABNTrain.apply(x, gamma, beta, eps, activation, slope)
+        return FusedABNTrain.apply(x, gamma, beta, eps, activation, slope, group)
     if mean is None or var is None:
         raise ValueError("fused_abn(training=False) needs the running mean and var")
     acc = _acc(x)

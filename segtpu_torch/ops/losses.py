@@ -13,7 +13,11 @@ reference's quirks are kept:
     weights (1, 0.5), normalised by their sum.
 
 Each binary loss takes ``logits`` and ``targets`` of one shape (NCHW,
-C = 1) and returns a scalar tensor. The multiclass losses (reference
+C = 1) and returns a scalar tensor. Given ``group`` (data parallel), a
+binary loss takes its batch sums (``sum p*t``, ``sum p``, ``sum t``, the
+BCE sum and the element count) over the ranks of the group in one
+all-reduce, and finishes from the global sums: the loss of the global batch,
+as segtpu computes it on its logically-global arrays. The multiclass losses (reference
 lib/losses.py:105-232, segtpu/ops/losses.py:132-240) take NCHW class scores
 and ``[N, H, W]`` integer class ids; like the reference's, they are not in
 the registry.
@@ -26,7 +30,23 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 
+from segtpu_torch.parallel import global_sums as _sums
+from segtpu_torch.parallel import group_size
+
 _EPS = 1e-7
+
+
+def _mean(x: torch.Tensor, group) -> torch.Tensor:
+    """``mean(x)`` over the global batch of ``group``'s ranks (equal shards)."""
+    if group is None:
+        return torch.mean(x)
+    (total,) = _sums(group, x)
+    return total / (x.numel() * group_size(group))
+
+
+def _smooth_jaccard(intersection, sum_p, sum_t, smooth: float) -> torch.Tensor:
+    union = sum_p + sum_t
+    return 1.0 - (intersection + smooth) / (union - intersection + smooth)
 
 
 def _bce_with_logits_elementwise(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -34,60 +54,73 @@ def _bce_with_logits_elementwise(x: torch.Tensor, t: torch.Tensor) -> torch.Tens
     return F.softplus(x) - x * t
 
 
-def dice_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def dice_loss(logits: torch.Tensor, targets: torch.Tensor, group=None) -> torch.Tensor:
     """1 - 2*I/(sum_p + sum_t + eps) on sigmoid probabilities (lib/losses.py:7-15)."""
     p = torch.sigmoid(logits)
     t = targets.to(p.dtype)
-    return 1.0 - 2.0 * torch.sum(p * t) / (torch.sum(p) + torch.sum(t) + _EPS)
+    intersection, sum_p, sum_t = _sums(group, p * t, p, t)
+    return 1.0 - 2.0 * intersection / (sum_p + sum_t + _EPS)
 
 
-def jaccard_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def jaccard_loss(logits: torch.Tensor, targets: torch.Tensor, group=None) -> torch.Tensor:
     """1 - I/(U - I + eps) (lib/losses.py:18-28)."""
     p = torch.sigmoid(logits)
     t = targets.to(p.dtype)
-    intersection = torch.sum(p * t)
-    union = torch.sum(p) + torch.sum(t)
+    intersection, sum_p, sum_t = _sums(group, p * t, p, t)
+    union = sum_p + sum_t
     return 1.0 - intersection / (union - intersection + _EPS)
 
 
 def smooth_jaccard_loss(logits: torch.Tensor, targets: torch.Tensor,
-                        smooth: float = 100.0) -> torch.Tensor:
+                        smooth: float = 100.0, group=None) -> torch.Tensor:
     """Additively smoothed Jaccard (lib/losses.py:31-43, smooth 100)."""
     p = torch.sigmoid(logits)
     t = targets.to(p.dtype)
-    intersection = torch.sum(p * t)
-    union = torch.sum(p) + torch.sum(t)
-    return 1.0 - (intersection + smooth) / (union - intersection + smooth)
+    return _smooth_jaccard(*_sums(group, p * t, p, t), smooth)
 
 
-def bce_with_sigmoid_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def bce_with_sigmoid_loss(logits: torch.Tensor, targets: torch.Tensor,
+                          group=None) -> torch.Tensor:
     """The reference's registered ``bce``: logsigmoid first, then
     BCE-with-logits on the result, mean reduction (lib/losses.py:46-53)."""
     x = F.logsigmoid(logits)
-    return torch.mean(_bce_with_logits_elementwise(x, targets.to(x.dtype)))
+    return _mean(_bce_with_logits_elementwise(x, targets.to(x.dtype)), group)
 
 
-def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor, group=None) -> torch.Tensor:
     """Conventional BCE-with-logits, mean reduction."""
-    return torch.mean(_bce_with_logits_elementwise(logits, targets.to(logits.dtype)))
+    return _mean(_bce_with_logits_elementwise(logits, targets.to(logits.dtype)), group)
 
 
 def bce_smooth_jaccard_loss(logits: torch.Tensor, targets: torch.Tensor,
-                            bce_weight: float = 1.0, jaccard_weight: float = 0.5) -> torch.Tensor:
-    """BCEWithLogitsLossAndSmoothJaccard (lib/losses.py:56-75)."""
-    loss1 = bce_with_sigmoid_loss(logits, targets) * bce_weight
-    loss2 = smooth_jaccard_loss(logits, targets) * jaccard_weight
+                            bce_weight: float = 1.0, jaccard_weight: float = 0.5,
+                            group=None) -> torch.Tensor:
+    """BCEWithLogitsLossAndSmoothJaccard (lib/losses.py:56-75). Under a
+    group its four batch sums go in one all-reduce."""
+    x = F.logsigmoid(logits)
+    bce = _bce_with_logits_elementwise(x, targets.to(x.dtype))
+    p = torch.sigmoid(logits)
+    t = targets.to(p.dtype)
+    if group is None:
+        bce_mean, jaccard_sums = torch.mean(bce), _sums(None, p * t, p, t)
+    else:
+        bce_sum, *jaccard_sums = _sums(group, bce, p * t, p, t)
+        bce_mean = bce_sum / (bce.numel() * group_size(group))
+    loss1 = bce_mean * bce_weight
+    loss2 = _smooth_jaccard(*jaccard_sums, 100.0) * jaccard_weight
     return (loss1 + loss2) / (bce_weight + jaccard_weight)
 
 
 def focal_loss_binary(logits: torch.Tensor, targets: torch.Tensor, gamma: float = 2.0,
-                      size_average: bool = False) -> torch.Tensor:
+                      size_average: bool = False, group=None) -> torch.Tensor:
     """Binary focal loss with the logsigmoid-then-BCE squash; the registry's
     ``size_average=False`` makes it a sum (lib/losses.py:78-101)."""
     x = F.logsigmoid(logits)
     logpt = -_bce_with_logits_elementwise(x, targets.to(x.dtype))
     loss = -((1.0 - torch.exp(logpt)) ** gamma) * logpt
-    return torch.mean(loss) if size_average else torch.sum(loss)
+    if size_average:
+        return _mean(loss, group)
+    return _sums(group, loss)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,8 @@ import subprocess
 import numpy as np
 import torch
 
+from segtpu_torch.device import resolve_device
+
 SEED, BATCH, PATCH, SLOPE = 0, 16, 512, 0.01
 # Device clock cycles of the spin kernel ahead of each timed run (about
 # 0.5 ms at the H100's clock): longer than the host takes to launch a call.
@@ -164,6 +166,7 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default=None, help="also write the JSON here")
     args = parser.parse_args(argv)
 
+    resolve_device("cuda")  # a measurement of the card: no card, no run
     shapes = step_norm_shapes()
     g = torch.Generator(device="cuda").manual_seed(SEED)
     accuracy = {"b1_single": [], "b1_pair": [], "b3_leaky_relu": []}

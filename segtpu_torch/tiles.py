@@ -144,14 +144,16 @@ class ImageSlicer:
         return out[self.margin_top:self.image_height + self.margin_top,
                    self.margin_left:self.image_width + self.margin_left]
 
-    def merge_device(self, tiles: torch.Tensor) -> torch.Tensor:
+    def merge_device(self, tiles: torch.Tensor, reduce_fn=None) -> torch.Tensor:
         """Merge a tile batch ``(T, C, t, t)`` on its own device; returns the
         ``(C, H, W)`` fp32 image. Equal to :meth:`merge` up to fp32
         accumulation.
 
         The crops lie on a regular grid of ``tile_step``, so ``F.fold`` with
         that stride places and sums the weighted tiles, and folds the weight
-        map alone for the normalisation."""
+        map alone for the normalisation. ``reduce_fn(acc)`` (tile-parallel
+        inference: a sum over the ranks, each holding its own tiles and zeros
+        elsewhere) runs in place on the weighted sum before the division."""
         if tiles.shape[0] != len(self.crops):
             raise ValueError(f"{tiles.shape[0]} tiles for {len(self.crops)} crops")
         t, c = self.tile_size, tiles.shape[1]
@@ -160,6 +162,8 @@ class ImageSlicer:
         # fold wants (1, C*t*t, L) with block l = crop l (row-major, y outer)
         cols = (tiles.float() * w).reshape(len(self.crops), c * t * t).t()
         acc = F.fold(cols.unsqueeze(0), **fold)[0]
+        if reduce_fn is not None:
+            reduce_fn(acc)
         wcols = w.reshape(t * t, 1).expand(t * t, len(self.crops))
         norm = F.fold(wcols.unsqueeze(0), **fold)[0]
         out = acc / norm.clamp_min(torch.finfo(torch.float32).eps)

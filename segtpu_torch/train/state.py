@@ -20,17 +20,34 @@ runs on the raw batch in fp32, before autocast and the model. Its draws come
 from a ``torch.Generator`` on the batch's device, seeded for each step from
 (run seed, 7, step) as segtpu folds 7 and ``state.step`` into its key: a run
 resumed at step k draws what an unbroken run draws at step k.
+
+Dropout is keyed by step too (segtpu's ``fold_in(rng, state.step)``,
+segtpu/train/state.py:99): before each forward the default generator of the
+batch's device is seeded from (run seed, 11, step), :func:`dropout_seed`.
+``torch.utils.checkpoint`` saves and restores that generator's state around
+a recomputed block, so a block under ``remat`` draws the same masks again.
+
+Data parallel (``grid`` with a data axis, :mod:`segtpu_torch.parallel`):
+each rank holds its slice of the global batch; the loss and the metrics
+finish from sums over the data group, the gradients are those of
+``loss * global batch`` summed over it, and ``grad_absmax`` is taken after
+that sum. Every rank seeds dropout alike and the dropouts keep their rank's
+rows of the global batch's mask, so N ranks draw one process's masks. The
+device augmentations draw per rank, from (run seed, 7, step, data rank).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import AbstractSet, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from segtpu_torch.ops.metrics import pr_curve_counts
+from segtpu_torch.parallel import Grid, all_reduce_gradients
 from segtpu_torch.train.optim import set_learning_rate
 
 Logs = Dict[str, torch.Tensor]
@@ -51,10 +68,35 @@ def grad_absmax(grads) -> torch.Tensor:
     return torch.stack(torch._foreach_norm(grads, float("inf"))).max()
 
 
-def augment_seed(seed: int, step: int) -> int:
+def _key(*entropy: int) -> int:
+    return int(np.random.SeedSequence(list(entropy)).generate_state(1, np.uint64)[0] >> 1)
+
+
+def augment_seed(seed: int, step: int, data_rank: Optional[int] = None) -> int:
     """The seed of step ``step``'s augmentation generator in a run seeded
-    ``seed``: a hash of (seed, 7, step) on the host, no device work."""
-    return int(np.random.SeedSequence([seed, 7, step]).generate_state(1, np.uint64)[0] >> 1)
+    ``seed``: a hash of (seed, 7, step) on the host, no device work; with
+    ``data_rank``, of (seed, 7, step, data_rank)."""
+    return _key(seed, 7, step) if data_rank is None else _key(seed, 7, step, data_rank)
+
+
+def dropout_seed(seed: int, step: int) -> int:
+    """The seed of step ``step``'s dropout stream in a run seeded ``seed``: a
+    hash of (seed, 11, step), a key of its own beside :func:`augment_seed`."""
+    return _key(seed, 11, step)
+
+
+def seed_device_generator(device: torch.device, seed: int) -> None:
+    """Seed the default generator of ``device`` (the one dropout draws from)."""
+    if device.type == "cuda":
+        torch.cuda.default_generators[device.index].manual_seed(seed)
+    else:
+        torch.default_generator.manual_seed(seed)
+
+
+def _on_group(fn: Callable, group) -> Callable:
+    """``fn`` with its batch sums taken over ``group`` (losses and metrics
+    take ``group=``)."""
+    return fn if group is None else functools.partial(fn, group=group)
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn: Callable,
@@ -62,6 +104,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn:
                     trainable_mask: Optional[AbstractSet[str]] = None,
                     param_penalty: Optional[Callable[[nn.Module], torch.Tensor]] = None,
                     augment_fn: Optional[Callable] = None, seed: int = 42,
+                    grid: Optional[Grid] = None,
                     ) -> Callable[[torch.Tensor, torch.Tensor, float], Logs]:
     """``step(x, y, lr) -> logs``: one training step of ``model`` in place.
 
@@ -86,8 +129,16 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn:
     batch, in fp32, before the model; its generator is seeded with
     :func:`augment_seed` of ``seed`` and the step's index, ``step.step``,
     which counts the calls and which a resumed run sets to the steps
-    already taken."""
-    metrics = metrics or {}
+    already taken. The dropout stream of the step is seeded with
+    :func:`dropout_seed` of the same index.
+
+    ``grid``: the ranks' (data, model) grid (:func:`segtpu_torch.parallel.make_grid`);
+    ``x``/``y`` are then this rank's slice of the global batch, and
+    ``loss_fn`` and the metrics take ``group=``."""
+    grid = grid or Grid()
+    group = grid.data_group
+    loss_fn = _on_group(loss_fn, group)
+    metrics = {k: _on_group(fn, group) for k, fn in (metrics or {}).items()}
     frozen = []
     if trainable_mask is not None:
         names = dict(model.named_parameters())
@@ -100,28 +151,34 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn:
 
     def train_step(x: torch.Tensor, y: torch.Tensor, lr: float) -> Logs:
         model.train()
+        step = train_step.step
         if augment_fn is not None:
             g = generators.get(x.device)
             if g is None:
                 g = generators[x.device] = torch.Generator(device=x.device)
-            g.manual_seed(augment_seed(seed, train_step.step))
+            g.manual_seed(augment_seed(seed, step, grid.data_rank if group is not None else None))
             x, y = augment_fn(g, x.float(), y.float())
         train_step.step += 1
         x = _model_input(x)
+        seed_device_generator(x.device, dropout_seed(seed, step))
         set_learning_rate(optimizer, lr)
         optimizer.zero_grad(set_to_none=True)
         with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
             logits = model(x)
         loss = loss_fn(logits, y)
-        total = loss * x.shape[0]
+        total = loss * (x.shape[0] * grid.data_size)
         if param_penalty is not None:
-            total = total + param_penalty(model)
+            total = total + param_penalty(model) / grid.data_size
         total.backward()
+        if group is not None:
+            all_reduce_gradients(model.parameters(), group)
         for p in frozen:
             if p.grad is not None:
                 p.grad.zero_()
-        logs = {"loss": loss.detach(),
-                "grad_absmax": grad_absmax(p.grad for p in model.parameters())}
+        absmax = grad_absmax(p.grad for p in model.parameters())
+        if grid.model_group is not None:
+            dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=grid.model_group)
+        logs = {"loss": loss.detach(), "grad_absmax": absmax}
         optimizer.step()
         with torch.no_grad():
             for name, fn in metrics.items():
@@ -135,14 +192,19 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn:
 
 def make_eval_step(model: nn.Module, loss_fn: Callable,
                    metrics: Optional[Dict[str, Callable]] = None, bf16: bool = False,
-                   with_pr_curve: bool = False) -> Callable[[torch.Tensor, torch.Tensor], Logs]:
+                   with_pr_curve: bool = False, grid: Optional[Grid] = None,
+                   ) -> Callable[[torch.Tensor, torch.Tensor], Logs]:
     """``step(x, y) -> logs``: loss and metrics of ``model`` in eval mode,
     with its running statistics (the reference's validate(),
     torch_train.py:240-305). Logs are 0-d tensors on the device. ``bf16``
     runs the forward under bfloat16 autocast, as the train step's.
     ``with_pr_curve`` adds ``logs["pr_counts"]``, the ``(tp, tn, fp, fn)`` of
-    :func:`~segtpu_torch.ops.metrics.pr_curve_counts`."""
-    metrics = metrics or {}
+    :func:`~segtpu_torch.ops.metrics.pr_curve_counts`. ``grid``: as
+    :func:`make_train_step`'s; the logs are those of the global batch."""
+    group = (grid or Grid()).data_group
+    loss_fn = _on_group(loss_fn, group)
+    metrics = {k: _on_group(fn, group) for k, fn in (metrics or {}).items()}
+    pr_counts = _on_group(pr_curve_counts, group)
 
     def eval_step(x: torch.Tensor, y: torch.Tensor) -> Logs:
         model.eval()
@@ -154,7 +216,7 @@ def make_eval_step(model: nn.Module, loss_fn: Callable,
             for name, fn in metrics.items():
                 logs[name] = fn(logits, y)
             if with_pr_curve:
-                logs["pr_counts"] = pr_curve_counts(logits, y)
+                logs["pr_counts"] = pr_counts(logits, y)
         return logs
 
     eval_step.model = model

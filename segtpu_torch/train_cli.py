@@ -9,6 +9,15 @@ segtpu's, plus ``--device``; runs on CUDA unless ``--device cpu``.
     python -m segtpu_torch.train_cli -m linknet34 -d shapes-device -l bce_jaccard \\
         -o adam -b 16 -p 512 -e 2 --bf16 --no-tensorboard
 
+Several ranks (segtpu/train_cli.py:161,290-330,391-395): under ``torchrun``
+(``torchrun --nproc_per_node N -m segtpu_torch.train_cli ...``) every rank
+runs this CLI; ``-b`` is the global batch, split over ``N / model_parallel``
+data ranks, each normalising with sync BatchNorm over the data group;
+``--model-parallel M`` shards the conv channels over groups of M ranks
+(:mod:`segtpu_torch.parallel.tensor`). Rank 0 alone writes the checkpoints,
+the CSV and the event files; a checkpoint holds the full weights and loads
+in a one-process run.
+
 Needs neither pandas, tqdm nor scikit-learn; cv2 for the datasets on files
 (``dsb2018``, ``inria*``); tensorboardX only when the writer is on (no
 ``--no-tensorboard``).
@@ -27,17 +36,23 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from segtpu_torch.augment.device import get_device_pipelines
+from segtpu_torch.compat.encoder_weights import install_encoder_weights
 from segtpu_torch.data import get_dataset
 from segtpu_torch.data.dsb2018 import DSB2018Sliced
 from segtpu_torch.data.inria import INRIA
 from segtpu_torch.data.pipeline import DataLoader, Subset
 from segtpu_torch.data.shapes import DeviceShapesSet, ShapesDataset
-from segtpu_torch.device import resolve_device
 from segtpu_torch.models import get_model, place_model, without_encoder
+from segtpu_torch.models.layers import set_data_shard, set_process_group
 from segtpu_torch.ops.losses import get_loss
 from segtpu_torch.ops.metrics import default_metrics
-from segtpu_torch.train.checkpoint import restore_snapshot, save_snapshot
+from segtpu_torch.parallel import fit_data_parallel, make_grid, replicate
+from segtpu_torch.parallel import tensor as tensor_parallel
+from segtpu_torch.parallel.distributed import maybe_initialize_distributed, rank_device
+from segtpu_torch.train.checkpoint import read_snapshot, write_snapshot
 from segtpu_torch.train.loop import run_train_epoch, run_validate_epoch
 from segtpu_torch.train.optim import cosine_annealing_lr, get_optimizer
 from segtpu_torch.train.state import make_eval_step, make_train_step
@@ -46,12 +61,8 @@ from segtpu_torch.utils import count_parameters
 # segtpu flags whose feature is not ported yet: each exits and names its
 # ROADMAP.md item instead of being ignored.
 LATER_FLAGS = (
-    ("model_parallel", lambda v: v > 1, "--model-parallel",
-     "slice 5 of ROADMAP.md (parallel modes: tensor parallel)"),
-    ("s2d", bool, "--s2d", "slice 5 of ROADMAP.md (s2d mode) and A1"),
+    ("s2d", bool, "--s2d", "the s2d item of ROADMAP.md (space-to-depth execution, §A 4)"),
     ("packed", bool, "--packed", "A18 of ROADMAP.md (tiramisu packed growth and remat_policy)"),
-    ("encoder_weights", lambda v: v is not None, "--encoder-weights",
-     "A1 of ROADMAP.md (torchvision-format encoder weights)"),
 )
 
 
@@ -86,7 +97,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 autocast (parameters stay fp32)")
     parser.add_argument("--model-parallel", type=int, default=1,
-                        help="Model-parallel mesh axis size (not yet ported: only 1)")
+                        help="Ranks per model group: conv channels are sharded over them "
+                             "(run under torchrun with a multiple of it)")
     parser.add_argument("--s2d", action="store_true", help="Space-to-depth mode (not yet ported)")
     parser.add_argument("--remat", action="store_true",
                         help="Per-block rematerialization for models that have it (zf_unet, "
@@ -116,7 +128,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="Reference-format .pth (a state_dict or a full snapshot) "
                              "loaded into the model before training")
     parser.add_argument("--encoder-weights", type=str, default=None,
-                        help="torchvision-format encoder weights (not yet ported)")
+                        help="Local torchvision-format .pth of the encoder's weights, "
+                             "loaded before training (and before -r's checkpoint)")
     parser.add_argument("--device", type=str, default=None,
                         help="Device to train on (default cuda; a missing GPU is an error)")
     return parser
@@ -195,7 +208,19 @@ def main(argv=None, *, param_penalty: Optional[Callable] = None,
     for attr, is_set, flag, item in LATER_FLAGS:
         if is_set(getattr(args, attr)):
             raise SystemExit(f"{flag} is not yet ported to segtpu_torch: it waits for {item}")
-    device = resolve_device(args.device)
+    owns_group = not dist.is_initialized()
+    distributed = maybe_initialize_distributed(args.device)
+    device = rank_device(args.device)
+    try:
+        grid = make_grid(args.model_parallel)
+    except ValueError as e:
+        raise SystemExit(f"--model-parallel {args.model_parallel}: {e}") from None
+    n_data = fit_data_parallel(args.batch_size, grid.data_size)
+    if n_data != grid.data_size:
+        raise SystemExit(f"-b {args.batch_size} does not split over {grid.data_size} data ranks; "
+                         f"launch {n_data * grid.model_size} ranks (data parallel {n_data} x "
+                         f"model parallel {grid.model_size})")
+    say = print if grid.is_main else (lambda *a, **k: None)
 
     if args.seed is not None:
         random.seed(args.seed)
@@ -209,10 +234,15 @@ def main(argv=None, *, param_penalty: Optional[Callable] = None,
     experiment_dir = os.path.join(args.experiments_dir, args.dataset, args.loss, args.experiment)
     os.makedirs(experiment_dir, exist_ok=True)
 
-    writer = None if args.no_tensorboard else _make_writer(args.experiment)
+    writer = None
+    if not args.no_tensorboard:
+        # every rank logs alike (the logging forwards and the PR curve's counts
+        # are collective); rank 0 alone writes
+        writer = _make_writer(args.experiment) if grid.is_main else _NullWriter()
     arg_line = " ".join(sys.argv[1:] if argv is None else argv)
-    with open(os.path.join(experiment_dir, "arguments.txt"), "w") as f:
-        f.write(arg_line)
+    if grid.is_main:
+        with open(os.path.join(experiment_dir, "arguments.txt"), "w") as f:
+            f.write(arg_line)
 
     augment_fn = eval_transform_fn = None
     if args.device_augs:
@@ -245,9 +275,31 @@ def main(argv=None, *, param_penalty: Optional[Callable] = None,
         if isinstance(sd, dict) and "model" in sd:  # a full reference snapshot
             sd = sd["model"]
         model.load_state_dict(sd, strict=True)
-        print("Torch weights loaded from", args.init_torch)
+        say("Torch weights loaded from", args.init_torch)
+    if args.encoder_weights:
+        install_encoder_weights(args.model, model, args.encoder_weights)
+        say("Encoder weights loaded from", args.encoder_weights)
     if model_initializer is not None:
         model_initializer(model, args)
+
+    start_epoch, best_loss, train_history = 0, np.inf, {}
+    checkpoint_filename = os.path.join(experiment_dir, f"{args.model}_checkpoint.pth")
+    snapshot_filename = os.path.join(experiment_dir, f"{args.model}_snapshot.pth")
+    resumed = None
+    if args.resume:
+        # the full weights load before the model is sharded; the optimizer
+        # state once the optimizer exists (segtpu_torch.parallel.tensor)
+        resumed = read_snapshot(checkpoint_filename)
+        model.load_state_dict(resumed["model"])
+        if "optimizer" not in resumed:
+            raise KeyError(f"{checkpoint_filename} holds no optimizer state")
+
+    n_params = count_parameters(model)
+    if grid.world > 1:
+        replicate(model)
+    set_process_group(model, grid.data_group)
+    set_data_shard(model, grid.data_rank, grid.data_size)
+    sharded = tensor_parallel.shard_model(model, grid)
 
     trainable = trainable_mask_fn(model) if trainable_mask_fn else None
     if args.freeze_encoder:
@@ -260,17 +312,28 @@ def main(argv=None, *, param_penalty: Optional[Callable] = None,
     loss_fn = get_loss(args.loss)
     optimizer = get_optimizer(args.optimizer, model.parameters(), args.learning_rate)
     metrics = default_metrics()
+    if resumed is not None:
+        opt_state = resumed["optimizer"]
+        if sharded:
+            opt_state = tensor_parallel.shard_optimizer_state(opt_state, model, sharded, grid)
+        optimizer.load_state_dict(opt_state)
+        start_epoch, train_history, best_loss = (resumed["epoch"] + 1, resumed["train_history"],
+                                                 resumed["loss"])
+        say("Resuming training from epoch", start_epoch, " and loss", best_loss)
 
-    print("Train set size", len(trainset))
-    print("Valid set size", len(validset))
-    print("Model         ", args.model)
-    print("Parameters    ", count_parameters(model))
-    print("Device        ", device, torch.cuda.get_device_name(device) if device.type == "cuda"
-          else "")
+    say("Train set size", len(trainset))
+    say("Valid set size", len(validset))
+    say("Model         ", args.model)
+    say("Parameters    ", n_params)
+    say("Device        ", device, torch.cuda.get_device_name(device) if device.type == "cuda"
+        else "")
+    if grid.world > 1:
+        say("Ranks         ", grid.world, f"(data {grid.data_size} x model {grid.model_size});",
+            "parameters on rank 0:", count_parameters(model))
 
     if isinstance(trainset, DeviceShapesSet):
-        trainloader = trainset.loader(args.batch_size, device)
-        validloader = validset.loader(args.batch_size, device)
+        trainloader = trainset.loader(args.batch_size, device, grid.data_rank, grid.data_size)
+        validloader = validset.loader(args.batch_size, device, grid.data_rank, grid.data_size)
     else:
         # seeded runs bind a stateless per-sample stream around each sample
         # (augment.host.bind_sample_rng): bit-identical at any -w
@@ -278,32 +341,33 @@ def main(argv=None, *, param_penalty: Optional[Callable] = None,
         trainloader = DataLoader(trainset, batch_size=args.batch_size, shuffle=True,
                                  workers=workers, drop_last=True,
                                  seed=args.seed if args.seed is not None else 0,
-                                 sample_seed=args.seed)
+                                 sample_seed=args.seed, process_index=grid.data_rank,
+                                 process_count=grid.data_size)
         validloader = DataLoader(validset, batch_size=args.batch_size, shuffle=False,
-                                 workers=workers, drop_last=True)
-
-    start_epoch, best_loss, train_history = 0, np.inf, {}
-    checkpoint_filename = os.path.join(experiment_dir, f"{args.model}_checkpoint.pth")
-    snapshot_filename = os.path.join(experiment_dir, f"{args.model}_snapshot.pth")
-    if args.resume:
-        start_epoch, train_history, best_loss = restore_snapshot(checkpoint_filename, model,
-                                                                 optimizer)
-        print("Resuming training from epoch", start_epoch, " and loss", best_loss)
+                                 workers=workers, drop_last=True, process_index=grid.data_rank,
+                                 process_count=grid.data_size)
 
     train_step = make_train_step(model, optimizer, loss_fn, metrics, bf16=args.bf16,
                                  trainable_mask=trainable, param_penalty=param_penalty,
                                  augment_fn=augment_fn,
-                                 seed=42 if args.seed is None else args.seed)
+                                 seed=42 if args.seed is None else args.seed, grid=grid)
     # every epoch has len(trainloader) steps (drop_last), so a resumed run's
     # step count is segtpu's restored state.step
     train_step.step = start_epoch * len(trainloader)
     eval_step = make_eval_step(model, loss_fn, metrics, bf16=args.bf16,
-                               with_pr_curve=writer is not None)
+                               with_pr_curve=writer is not None, grid=grid)
     metric_names = list(metrics)
 
     def snapshot(path, loss, epoch):
-        save_snapshot(path, model, optimizer, epoch=epoch, loss=loss,
-                      train_history=train_history, args=arg_line)
+        # collective under model parallelism: every rank gathers, rank 0 writes
+        if sharded:
+            model_state = tensor_parallel.full_state_dict(model, sharded, grid)
+            opt_state = tensor_parallel.full_optimizer_state(optimizer, model, sharded, grid)
+        else:
+            model_state, opt_state = model.state_dict(), optimizer.state_dict()
+        if grid.is_main:
+            write_snapshot(path, model_state, opt_state, epoch=epoch, loss=loss,
+                           train_history=train_history, args=arg_line)
 
     for epoch in range(start_epoch, args.epochs):
         lr = args.learning_rate
@@ -314,7 +378,7 @@ def main(argv=None, *, param_penalty: Optional[Callable] = None,
 
         trainloader.set_epoch(epoch)
         profiler = None
-        if args.profile_dir is not None and epoch == start_epoch:
+        if args.profile_dir is not None and epoch == start_epoch and grid.is_main:
             from torch.profiler import ProfilerActivity, profile
             activities = [ProfilerActivity.CPU]
             if device.type == "cuda":
@@ -349,24 +413,34 @@ def main(argv=None, *, param_penalty: Optional[Callable] = None,
             summary["val_" + key] = value.avg
         for key, value in summary.items():
             train_history.setdefault(key, []).append(value)
-        print(epoch, summary)
+        say(epoch, summary)
 
         # a new best is written at once (reference torch_train.py:435-438);
         # --snapshot-every gates only the last-epoch snapshot
         if valid_loss.avg < best_loss and args.snapshot_every > 0:
             best_loss = valid_loss.avg
             snapshot(checkpoint_filename, valid_loss.avg, epoch)
-            print("Checkpoint saved", epoch, best_loss)
+            say("Checkpoint saved", epoch, best_loss)
         if args.snapshot_every > 0 and ((epoch + 1) % args.snapshot_every == 0
                                         or epoch == args.epochs - 1):
             snapshot(snapshot_filename, valid_loss.avg, epoch)
 
-    print("Training is finished...")
+    say("Training is finished...")
     if writer is not None:
         writer.close()
-    write_history_csv(os.path.join(experiment_dir, args.experiment + ".csv"), train_history,
-                      append=args.resume)
+    if grid.is_main:
+        write_history_csv(os.path.join(experiment_dir, args.experiment + ".csv"), train_history,
+                          append=args.resume)
+    if distributed and owns_group:
+        dist.destroy_process_group()
     return train_history
+
+
+class _NullWriter:
+    """The writer of a rank other than 0: takes every call, writes nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
 
 
 if __name__ == "__main__":

@@ -14,6 +14,7 @@ numpy; weights come from ``tests/torch_port_util.py``.
 import copy
 import math
 import os
+import shutil
 import subprocess
 import sys
 
@@ -607,10 +608,20 @@ def test_cli_shapes_device_with_cap_sgdr_and_resume(tmp_path, monkeypatch):
                                   ["--encoder-weights", "w.pth"]])
 def test_cli_flags_of_later_slices_exit(tmp_path, flag):
     """Each unported flag exits naming its ROADMAP item before the run makes
-    a file; ``--remat`` is ported and exits as segtpu's does for a model
-    without a remat mode."""
+    a file. The ported ones exit as segtpu's do on what they cannot take:
+    ``--remat`` for a model without a remat mode, ``--model-parallel 2`` in a
+    process that runs alone, ``--encoder-weights`` for a missing file."""
     if flag == ["--remat"]:
         with pytest.raises(SystemExit, match="--remat: model 'linknet34' has no remat mode"):
+            train_cli.main(_cli_args(tmp_path, *flag))
+        return
+    if flag[0] == "--model-parallel":
+        with pytest.raises(SystemExit, match="--model-parallel 2: .*needs 2 ranks"):
+            train_cli.main(_cli_args(tmp_path, *flag))
+        assert not (tmp_path / "shapes").exists()
+        return
+    if flag[0] == "--encoder-weights":
+        with pytest.raises(FileNotFoundError, match="w.pth"):
             train_cli.main(_cli_args(tmp_path, *flag))
         return
     with pytest.raises(SystemExit, match="ROADMAP"):
@@ -650,6 +661,40 @@ def test_cli_device_augs_trains_and_resumes_with_the_same_draws(tmp_path, monkey
     for got, want in zip(batches[2:], unbroken_batches[2:]):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert all(math.isfinite(v) for v in whole["loss"] + whole["val_loss"] + resumed["loss"])
+    # dropout is keyed by step too (ROADMAP C1): the resumed second epoch's
+    # losses and metrics are the unbroken run's, bit for bit
+    assert resumed == whole
+
+
+def test_cli_resume_with_dropout_repeats_the_unbroken_run(straight, tmp_path):
+    """LinkNet34 with its ``Dropout2d(0.5)`` on: ``-e 1`` then ``-e 2 -r``
+    ends with the unbroken two-epoch run's history and weights, bit for bit
+    (each step seeds dropout from (seed, step), segtpu's fold_in of
+    state.step), while another seed draws other masks."""
+    runs = {}
+    for name, steps in (("whole", [2]), ("broken", [1, 2]), ("other", [2])):
+        for epochs in steps:
+            extra = ["-r"] if epochs == 2 and name == "broken" else []
+            if name == "other":
+                extra = ["--seed", "9", "--snapshot-every", "0"]
+            runs[name] = train_cli.main(_cli_args(tmp_path / name, "--seed", "8", *extra,
+                                                  epochs=epochs, steps=2))
+    assert runs["broken"] == runs["whole"] and runs["whole"]["epoch"] == [0, 1]
+    assert runs["other"]["loss"] != runs["whole"]["loss"]
+    got, _ = load_snapshot(str(_experiment(tmp_path / "broken")[0] / "linknet34_snapshot.pth"))
+    want, _ = load_snapshot(str(_experiment(tmp_path / "whole")[0] / "linknet34_snapshot.pth"))
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    for name in runs:
+        shutil.rmtree(tmp_path / name)
+
+
+def test_dropout_seed_is_a_key_of_its_own():
+    """(seed, step) keys: distinct per step and seed, apart from the
+    augmentations' (seed, 7, step) keys and the per-rank ones."""
+    keys = {state_mod.dropout_seed(s, k) for s in (0, 1) for k in range(50)}
+    augs = {state_mod.augment_seed(s, k) for s in (0, 1) for k in range(50)}
+    ranks = {state_mod.augment_seed(0, 3, r) for r in range(4)}
+    assert len(keys) == len(augs) == 100 and not keys & augs and len(ranks) == 4
 
 
 def test_cli_device_augs_validates_raw_batches_normalised(tmp_path, monkeypatch):

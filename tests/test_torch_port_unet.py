@@ -366,6 +366,28 @@ def test_train_ab_cli_trains_the_afterburner_on_a_frozen_head(tmp_path, monkeypa
     assert sum(not torch.equal(after[k], start[k]) for k in ab) == len(ab)
 
 
+def test_cli_zf_unet_remat_resume_repeats_the_unbroken_run(tmp_path):
+    """A narrow ZF_UNET under ``--remat``, whose ``Dropout2d`` layers sit
+    inside the recomputed blocks: ``-e 1`` then ``-e 2 -r`` gives the unbroken
+    two-epoch run's history and weights bit for bit (dropout keyed by step,
+    and ``torch.utils.checkpoint`` replays each block's masks)."""
+    def narrow(args, num_channels):
+        model = unet.ZF_UNET(input_channels=num_channels, filters=4)
+        layers.reset_parameters(model, torch.Generator().manual_seed(2))
+        return model
+
+    runs = {}
+    for name, epochs in (("whole", 2), ("broken", 1), ("broken", 2)):
+        extra = ["-r"] if name == "broken" and epochs == 2 else []
+        runs[name] = train_cli.main(_cli(tmp_path / name, "--remat", "--seed", "4", "-e",
+                                         str(epochs), *extra, model="zf_unet",
+                                         loss="bce_jaccard", steps=2), model_builder=narrow)
+    assert runs["broken"] == runs["whole"] and runs["whole"]["epoch"] == [0, 1]
+    got, _ = load_snapshot(str(next((tmp_path / "broken").rglob("zf_unet_snapshot.pth"))))
+    want, _ = load_snapshot(str(next((tmp_path / "whole").rglob("zf_unet_snapshot.pth"))))
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
 @pytest.mark.parametrize("model, extra", [("zf_unet", ["--remat"]), ("unet_abn", [])])
 def test_train_cli_trains_the_unet_family(tmp_path, model, extra):
     """One epoch at full width, 64 x 64: finite losses, and the best

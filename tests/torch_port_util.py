@@ -7,6 +7,10 @@ its port (``_compare``)."""
 
 import copy
 import math
+import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import optax
@@ -309,3 +313,39 @@ def replay_inria(key, n, h, w, grayscale=False):
             "contrast": replay_alpha(k[2], n, "contrast", 0.1),
             "vflip": replay_fire(k[3], n), "hflip": replay_fire(k[4], n),
             "ssr": replay_shift_scale_rotate(k[5], n, h, w, rotate_limit=15.0)}
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RANK_TIMEOUT_S = 300
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(argv, world: int = 2, timeout: float = RANK_TIMEOUT_S):
+    """Run ``python <argv>`` as ``world`` ranks on the CPU with torchrun's
+    variables set (a fresh port from the OS), each process with its own
+    timeout; returns their outputs and fails with the tail of a rank's
+    output when it exits non-zero."""
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               WORLD_SIZE=str(world), OMP_NUM_THREADS="2",
+               PYTHONPATH=os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable, *argv], cwd=ROOT, text=True,
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-4000:]}"
+    return outs
