@@ -215,7 +215,8 @@ Phases, one JSON line each; any failure exits non-zero:
                new directory, then -r -e 2 there, whose epoch draws the
                unbroken run's second epoch (each step's generator seed, the
                sums of the augmented batches) and whose loss is the unbroken
-               epoch's to RESUME_RTOL (dropout keyed by step); launches per
+               epoch's to RESUME_RTOL (dropout keyed by step, cuDNN
+               deterministic); launches per
                step the layer count, host waits per train epoch, losses
                finite and falling
   lr_finder    python -m segtpu_torch.lr_finder -m linknet34 -d shapes-device
@@ -2461,37 +2462,45 @@ class AugmentRecorder:
         return torch.stack(self.sums).cpu().tolist() if self.sums else []
 
 
-# The resumed epoch's loss against the unbroken run's: 1.56e-3 apart when the
-# resumed run drew other dropout masks (0.36507 against 0.36564, H100).
-RESUME_RTOL = 1e-3
+# The resumed epoch's loss against the unbroken run's, with cuDNN held to
+# deterministic algorithms: 0.0 apart once dropout was keyed by step, 1.56e-3
+# when the resumed run drew other dropout masks (0.36507 against 0.36564,
+# H100).
+RESUME_RTOL = 1e-6
 
 
 def phase_train_cli_device_augs(step_ms: float, tmpdir: Path):
     """``-m linknet34 -d shapes --device-augs`` through the train CLI at
-    full width (batch 16, patch 512, bf16, Adam): (a) 2 epochs of 8 steps;
-    (b) 1 epoch in a new directory, then (c) ``-r -e 2`` there: its second
-    epoch must draw (a)'s: the same generator seed at each step and the
-    same sums of the augmented batches. Launches per step the layer count
+    full width (batch 16, patch 512, bf16, Adam), cuDNN deterministic: (a) 2
+    epochs of 8 steps; (b) 1 epoch in a new directory, then (c) ``-r -e 2``
+    there: its second epoch must draw (a)'s: the same generator seed at each
+    step and the same sums of the augmented batches, and give (a)'s second
+    epoch loss to RESUME_RTOL. Launches per step the layer count
     (the augmentation adds none), the host's waits per train epoch at most
     EPOCH_SYNCS, losses finite and (a)'s second epoch below its first."""
     base = CLI_ARGS + ["-d", "shapes", "--device-augs", "-s", str(AUG_STEPS), "-w", "4"]
     runs, launches, recorded = [], Counter(), {}
-    for label, exp, extra, epochs in (("a", "a", ["-e", "2"], 2), ("b", "b", ["-e", "1"], 1),
-                                      ("c", "b", ["-e", "2", "-r"], 1)):
-        with AugmentRecorder() as rec:
-            history, out = cli_run(label, base + extra + ["--experiments-dir", str(tmpdir / exp)],
-                                   epochs * AUG_STEPS, epochs * AUG_VAL_BATCHES, step_ms)
-        recorded[label] = (rec.seeds, rec.fetch())
-        out["augment_seeds"] = rec.seeds
-        runs.append(out)
-        launches.update(out["launches"])
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, exp, extra, epochs in (("a", "a", ["-e", "2"], 2), ("b", "b", ["-e", "1"], 1),
+                                          ("c", "b", ["-e", "2", "-r"], 1)):
+            with AugmentRecorder() as rec:
+                history, out = cli_run(label,
+                                       base + extra + ["--experiments-dir", str(tmpdir / exp)],
+                                       epochs * AUG_STEPS, epochs * AUG_VAL_BATCHES, step_ms)
+            recorded[label] = (rec.seeds, rec.fetch())
+            out["augment_seeds"] = rec.seeds
+            runs.append(out)
+            launches.update(out["launches"])
+    finally:
+        torch.backends.cudnn.deterministic = saved
     a_seeds, a_sums = recorded["a"]
     c_seeds, c_sums = recorded["c"]
     repeats = c_seeds == a_seeds[AUG_STEPS:] and c_sums == a_sums[AUG_STEPS:]
     falling = runs[0]["loss"][1] < runs[0]["loss"][0]
-    # dropout is keyed by step as the augmentations are (ROADMAP C1): the
-    # resumed epoch's loss differs from the unbroken one's only by the
-    # card's nondeterministic sums, not by other dropout masks
+    # dropout is keyed by step as the augmentations are (ROADMAP C1), and
+    # cuDNN is deterministic: the resumed epoch repeats the unbroken one's loss
     resumed_diff = abs(runs[2]["loss"][-1] - runs[0]["loss"][-1]) / abs(runs[0]["loss"][-1])
     ok = repeats and falling and runs[2]["epochs"] == [0, 1] and resumed_diff <= RESUME_RTOL
     emit("train_cli_device_augs", runs=runs, resumed_draws_repeat=repeats,

@@ -272,21 +272,18 @@ def float_logits(out: torch.Tensor) -> torch.Tensor:
     return out.to(torch.promote_types(out.dtype, torch.float32))
 
 
-def _global_batch_dropout(x: torch.Tensor, p: float, shard: Tuple[int, int],
-                          feature: bool) -> torch.Tensor:
-    """``x * mask / (1 - p)`` with the mask of the global batch: the rows of
-    ``shard = (data rank, data size)`` of a Bernoulli(1 - p) draw of shape
-    ``(N * size, C, 1, 1)`` (feature dropout) or ``(N * size,) + x.shape[1:]``,
-    in ``x``'s dtype. For one rank it is torch's own feature dropout,
-    ``noise.bernoulli_(1 - p).div_(1 - p)`` on the generator of ``x``'s
-    device, bit for bit."""
+def _global_batch_draw(x: torch.Tensor, p: float, shard: Tuple[int, int],
+                       feature: bool) -> torch.Tensor:
+    """This rank's rows of a Bernoulli(1 - p) draw, in ``x``'s dtype, of the
+    global batch: shape ``(N * size, C, 1, 1)`` (feature dropout) or
+    ``(N * size,) + x.shape[1:]``, cut to the rows of ``shard = (data rank,
+    data size)``, on the generator of ``x``'s device."""
     rank, size = shard
     n = x.shape[0]
     shape = (n * size,) + ((x.shape[1],) + (1,) * (x.dim() - 2) if feature else x.shape[1:])
     noise = torch.empty(shape, dtype=x.dtype, device=x.device)
     noise.bernoulli_(1 - p)
-    noise.div_(1 - p)
-    return x * noise[rank * n:(rank + 1) * n]
+    return noise[rank * n:(rank + 1) * n]
 
 
 class Dropout2d(nn.Dropout2d):
@@ -301,19 +298,26 @@ class Dropout2d(nn.Dropout2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        return _global_batch_dropout(x, self.p, self.data_shard, feature=True)
+        # torch's own feature dropout for one rank, bit for bit: the noise
+        # is scaled in x's dtype
+        noise = _global_batch_draw(x, self.p, self.data_shard, feature=True)
+        return x * noise.div_(1 - self.p)
 
 
 class Dropout(nn.Dropout):
     """Element dropout (``nn.Dropout``) drawn as :class:`Dropout2d` is: the
-    mask of the global batch, this rank's rows."""
+    mask of the global batch, this rank's rows. As torch's fused dropout
+    does, it scales by 1 / (1 - p) at fp32 and rounds each element once (a
+    bf16 scale would shrink every kept value: 1.109375 for 1 / 0.9), and
+    keeps a bool mask for the backward."""
 
     data_shard: Tuple[int, int] = (0, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        return _global_batch_dropout(x, self.p, self.data_shard, feature=False)
+        keep = _global_batch_draw(x, self.p, self.data_shard, feature=False).bool()
+        return torch.where(keep, x * (1.0 / (1 - self.p)), 0.0)
 
 
 def set_data_shard(model: nn.Module, data_rank: int, data_size: int) -> None:

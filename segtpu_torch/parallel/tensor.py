@@ -3,7 +3,7 @@
 
 segtpu shards each conv kernel on its output channels, and each per-channel
 vector, over its ``model`` mesh axis when the channel count is divisible by
-the axis size and at least ``min_features`` (segtpu/parallel/tensor.py:28-44);
+the axis size and at least ``MIN_FEATURES`` (segtpu/parallel/tensor.py:28-44);
 everything else stays replicated. Here the ``model_size`` ranks of one model
 group hold the same data and compute the same activations, and:
 
@@ -32,8 +32,9 @@ RMSprop's moments follow their parameters: built on the shards, they hold
 
 A checkpoint holds the gathered, full ``state_dict`` and optimizer state
 (:func:`full_state_dict`, :func:`full_optimizer_state`), which load in a
-one-process run; :func:`load_full_state_dict` and
-:func:`shard_optimizer_state` cut them again for ``-r``.
+one-process run. ``-r`` loads the full weights into the whole model, shards
+it with :func:`shard_model`, and cuts the optimizer state to the shards with
+:func:`shard_optimizer_state`.
 """
 
 from __future__ import annotations
@@ -124,8 +125,8 @@ class _ScatterToModel(torch.autograd.Function):
         return _all_gather_channels(g, ctx.group), None, None, None
 
 
-def _eligible(n: int, tp: int, min_features: int) -> bool:
-    return n % tp == 0 and n >= min_features
+def _eligible(n: int, tp: int) -> bool:
+    return n % tp == 0 and n >= MIN_FEATURES
 
 
 def _cut(t: torch.Tensor, dim: int, rank: int, size: int) -> torch.Tensor:
@@ -147,7 +148,7 @@ def _shard_tensors(module: nn.Module, prefix: str, names: Dict[str, int], grid: 
         sharded[prefix + attr] = dim
 
 
-def shard_model(model: nn.Module, grid: Grid, min_features: int = MIN_FEATURES) -> Dict[str, int]:
+def shard_model(model: nn.Module, grid: Grid) -> Dict[str, int]:
     """Shard ``model`` in place over ``grid``'s model group; returns the
     sharded ``state_dict`` keys and the dim each is cut along. Every rank of
     the group must hold the same full weights before (``replicate``).
@@ -168,21 +169,19 @@ def shard_model(model: nn.Module, grid: Grid, min_features: int = MIN_FEATURES) 
 
     for name, m in model.named_modules():
         prefix = name + "." if name else ""
-        if isinstance(m, nn.Conv2d) and m.groups == 1 and _eligible(m.out_channels, tp,
-                                                                     min_features):
+        if isinstance(m, nn.Conv2d) and m.groups == 1 and _eligible(m.out_channels, tp):
             _shard_tensors(m, prefix, {"weight": 0, "bias": 0}, grid, sharded)
             m.register_forward_pre_hook(copy_in)
             m.register_forward_hook(gather_out)
         elif isinstance(m, nn.ConvTranspose2d) and m.groups == 1:
-            cut_in = _eligible(m.in_channels, tp, min_features)
-            cut_bias = m.bias is not None and _eligible(m.out_channels, tp, min_features)
+            cut_in = _eligible(m.in_channels, tp)
+            cut_bias = m.bias is not None and _eligible(m.out_channels, tp)
             if cut_in or cut_bias:
                 _shard_tensors(m, prefix, dict(([("weight", 0)] if cut_in else [])
                                                + ([("bias", 0)] if cut_bias else [])),
                                grid, sharded)
                 m.forward = _sharded_deconv_forward(m, grid, cut_in, cut_bias)
-        elif isinstance(m, (BatchNormTorch, InPlaceABN)) and _eligible(m.features, tp,
-                                                                        min_features):
+        elif isinstance(m, (BatchNormTorch, InPlaceABN)) and _eligible(m.features, tp):
             _shard_tensors(m, prefix, {"weight": 0, "bias": 0, "running_mean": 0,
                                        "running_var": 0}, grid, sharded)
             m.register_forward_pre_hook(scatter_in)
@@ -228,13 +227,6 @@ def full_state_dict(model: nn.Module, sharded: Dict[str, int], grid: Grid) -> Di
     sd = model.state_dict()
     return {k: gather_shard(v, sharded[k], grid.model_group) if k in sharded else v
             for k, v in sd.items()}
-
-
-def load_full_state_dict(model: nn.Module, state_dict: Dict[str, torch.Tensor],
-                         sharded: Dict[str, int], grid: Grid) -> None:
-    """Load a one-process ``state_dict`` into a sharded model (strict)."""
-    model.load_state_dict({k: _cut(v, sharded[k], grid.model_rank, grid.model_size)
-                           if k in sharded else v for k, v in state_dict.items()})
 
 
 def _param_dims(model: nn.Module, sharded: Dict[str, int]) -> List[Optional[int]]:

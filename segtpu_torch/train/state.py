@@ -22,8 +22,9 @@ from a ``torch.Generator`` on the batch's device, seeded for each step from
 resumed at step k draws what an unbroken run draws at step k.
 
 Dropout is keyed by step too (segtpu's ``fold_in(rng, state.step)``,
-segtpu/train/state.py:99): before each forward the default generator of the
-batch's device is seeded from (run seed, 11, step), :func:`dropout_seed`.
+segtpu/train/state.py:99): for each step's forward and backward the default
+generator of the batch's device is seeded from (run seed, 11, step),
+:func:`dropout_seed`, and it gets its own state back after.
 ``torch.utils.checkpoint`` saves and restores that generator's state around
 a recomputed block, so a block under ``remat`` draws the same masks again.
 
@@ -38,8 +39,9 @@ device augmentations draw per rank, from (run seed, 7, step, data rank).
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import AbstractSet, Callable, Dict, Optional
+from typing import AbstractSet, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -85,12 +87,19 @@ def dropout_seed(seed: int, step: int) -> int:
     return _key(seed, 11, step)
 
 
-def seed_device_generator(device: torch.device, seed: int) -> None:
-    """Seed the default generator of ``device`` (the one dropout draws from)."""
-    if device.type == "cuda":
-        torch.cuda.default_generators[device.index].manual_seed(seed)
-    else:
-        torch.default_generator.manual_seed(seed)
+@contextlib.contextmanager
+def seeded_device_generator(device: torch.device, seed: int) -> Iterator[None]:
+    """Seed the default generator of ``device`` (the one dropout draws from)
+    for the block, and give it back its state after, so that torch's other
+    draws in the process do not follow the step's key."""
+    gen = torch.cuda.default_generators[device.index] if device.type == "cuda" \
+        else torch.default_generator
+    saved = gen.get_state()
+    gen.manual_seed(seed)
+    try:
+        yield
+    finally:
+        gen.set_state(saved)
 
 
 def _on_group(fn: Callable, group) -> Callable:
@@ -129,8 +138,12 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn:
     batch, in fp32, before the model; its generator is seeded with
     :func:`augment_seed` of ``seed`` and the step's index, ``step.step``,
     which counts the calls and which a resumed run sets to the steps
-    already taken. The dropout stream of the step is seeded with
-    :func:`dropout_seed` of the same index.
+    already taken. The dropout masks of the step, in its forward and
+    backward, come from the default generator of ``x``'s device seeded
+    with :func:`dropout_seed` of the same index: they are a function of
+    (``seed``, step) alone, the same in every run with that seed, and in a
+    resumed run as in an unbroken one. The generator gets its state back
+    after the backward, so other draws in the process are left as they were.
 
     ``grid``: the ranks' (data, model) grid (:func:`segtpu_torch.parallel.make_grid`);
     ``x``/``y`` are then this rank's slice of the global batch, and
@@ -160,16 +173,18 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn:
             x, y = augment_fn(g, x.float(), y.float())
         train_step.step += 1
         x = _model_input(x)
-        seed_device_generator(x.device, dropout_seed(seed, step))
         set_learning_rate(optimizer, lr)
         optimizer.zero_grad(set_to_none=True)
-        with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
-            logits = model(x)
-        loss = loss_fn(logits, y)
-        total = loss * (x.shape[0] * grid.data_size)
-        if param_penalty is not None:
-            total = total + param_penalty(model) / grid.data_size
-        total.backward()
+        # the forward, and the backward that may recompute it (remat), draw
+        # their dropout masks from the step's key
+        with seeded_device_generator(x.device, dropout_seed(seed, step)):
+            with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
+                logits = model(x)
+            loss = loss_fn(logits, y)
+            total = loss * (x.shape[0] * grid.data_size)
+            if param_penalty is not None:
+                total = total + param_penalty(model) / grid.data_size
+            total.backward()
         if group is not None:
             all_reduce_gradients(model.parameters(), group)
         for p in frozen:

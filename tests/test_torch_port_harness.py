@@ -44,7 +44,7 @@ from segtpu_torch import regularization, train_cli, train_reg_cli
 from segtpu_torch.augment import host
 from segtpu_torch.compat.jax_params import state_dict_from_jax
 from segtpu_torch.data import get_dataset, pipeline, shapes
-from segtpu_torch.models import ENCODER_PREFIXES, get_model
+from segtpu_torch.models import ENCODER_PREFIXES, get_model, layers
 from segtpu_torch.ops import losses, meters, metrics
 from segtpu_torch.train import loop, optim
 from segtpu_torch.train import state as state_mod
@@ -695,6 +695,64 @@ def test_dropout_seed_is_a_key_of_its_own():
     augs = {state_mod.augment_seed(s, k) for s in (0, 1) for k in range(50)}
     ranks = {state_mod.augment_seed(0, 3, r) for r in range(4)}
     assert len(keys) == len(augs) == 100 and not keys & augs and len(ranks) == 4
+
+
+@pytest.mark.parametrize("cls", [layers.Dropout, layers.Dropout2d])
+def test_dropout_ranks_draw_the_global_batch_mask(cls):
+    """Two data ranks of batch 2, seeded alike, keep the rows of one
+    process's mask over batch 4."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 6, 5, 5),
+                                                                   dtype=np.float32))
+    m = cls(0.3).train()
+    torch.manual_seed(3)
+    whole = m(x)
+    parts = []
+    for rank in range(2):
+        layers.set_data_shard(m, rank, 2)
+        torch.manual_seed(3)
+        parts.append(m(x[2 * rank:2 * rank + 2]))
+    assert torch.equal(torch.cat(parts), whole)
+
+
+def test_element_dropout_scales_at_fp32_and_keeps_a_bool_mask():
+    """bf16 kept values are x / (1 - p) rounded once from fp32, as torch's
+    fused dropout gives them, not x times a bf16 scale; the backward keeps a
+    bool mask only."""
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((4, 8, 16, 16),
+                                                                   dtype=np.float32))
+    x = x.bfloat16().requires_grad_()
+    saved = []
+    torch.manual_seed(0)
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t.dtype) or t,
+                                                  lambda t: t):
+        y = layers.Dropout(0.1).train()(x)
+    keep = y != 0
+    assert 0.85 < keep.float().mean() < 0.95
+    want = (x.detach().float() / 0.9).bfloat16()
+    assert torch.equal(y.detach()[keep], want[keep])
+    assert saved == [torch.bool]
+    y.backward(torch.ones_like(y))
+    assert torch.equal(x.grad, torch.where(keep, torch.tensor(1 / 0.9).bfloat16(), 0.0))
+
+
+def test_train_step_gives_the_generator_back():
+    """The step draws its dropout from the (seed, step) key and leaves the
+    process's default generator as it found it."""
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Conv2d(3, 4, 3, padding=1), layers.Dropout2d(0.5),
+                                layers.Dropout(0.5), torch.nn.Conv2d(4, 1, 1)).double()
+    x = torch.rand(2, 3, 8, 8, dtype=torch.float64)
+    y = (torch.rand(2, 1, 8, 8, dtype=torch.float64) > 0.5).double()
+    losses_seen = []
+    for before in (7, 8):
+        net = copy.deepcopy(model)
+        step = make_train_step(net, torch.optim.SGD(net.parameters(), lr=0.1),
+                               losses.get_loss("bce"))
+        torch.manual_seed(before)
+        state = torch.get_rng_state()
+        losses_seen.append([float(step(x, y, 0.1)["loss"]) for _ in range(2)])
+        assert torch.equal(torch.get_rng_state(), state)
+    assert losses_seen[0] == losses_seen[1]
 
 
 def test_cli_device_augs_validates_raw_batches_normalised(tmp_path, monkeypatch):
