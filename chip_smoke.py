@@ -71,6 +71,15 @@ Phases, one JSON line each; any failure exits non-zero:
                the parity steps in fp32; each zoo model's largest and
                psp_net's and duc's per-step calls timed beside
                F.batch_norm, reported and not gated
+  kernel_s2d   B1 (both forms), B2 (none, leaky_relu) and B3 against their
+               plain versions at the normalisation inputs of the s2d forms'
+               steps (grouped statistics: zf_unet and UNetABN at batch 16,
+               tiramisu67 and tiramisu57 at batch 4 with their block-wise
+               4 x (48 + 16k) and 4 x (48 + 12k) channels, LinkNext's stem)
+               that the earlier phases did not check, bf16 channels_last;
+               each s2d form's largest shape timed beside the plain
+               versions, torch.var_mean, torch.batch_norm_backward_reduce
+               and F.batch_norm
   model_parity LinkNet34 saved and reloaded through the .pth snapshot format,
                one 2x3x512x512 fp32 eval forward on the card vs the CPU
   serve        tiled inference as the submit CLI runs it (patch 512, batch 64,
@@ -113,6 +122,13 @@ Phases, one JSON line each; any failure exits non-zero:
                (--encoder-weights, then -c <dir>.ckpt) against the CPU's from
                a .pth of the same weights (fp32 logits, atol 1e-3); then
                submit_cli itself on one 1024^2 image, B2's launches counted
+  serve_host_slice  one seeded 5000x5000 image as serve runs it, with the tiles
+               cut on the host (native tile I/O, slice_on_device=False) and
+               on the device in turns: the native extractor cut both host
+               runs' tiles (no NumPy fallback), probabilities within 1e-6, s/image
+               of each, B2's launches, the native split's and NumPy's
+               seconds; then LinkNet34's s2d head on a 1024^2 crop against
+               normal space (fp32 within 1e-4, bf16 mask agreement)
   zf_unet_parity  full-width ZF_UNET: one 1x3x256x256 fp32 eval forward on the
                card (TF32 off) vs the CPU, then one fp32 SGD bce training step
                on 2x3x128x128 SHAPES (dropout off), card against CPU and
@@ -148,6 +164,20 @@ Phases, one JSON line each; any failure exits non-zero:
   train_unet11    the bench config unet11-finetune-512 in normal space (VGG
                stages frozen): 3 warm and 5 timed steps, no kernel of this
                repo (0, 0, 0); then 2 UNet16 steps
+  s2d_parity   one fp32 SGD step of full-width ZF_UNET and UNetABN in s2d form
+               on 2x3x128x128 SHAPES: card against CPU and float64 by
+               PARITY_TOL, launches the layer count, and against the card's
+               normal-space step by the same gates
+  train_s2d    segtpu's s2d bench form of zf_unet-512 and unet11-finetune-512,
+               and UNetABN, at batch 16, patch 512, bf16: normal, s2d, s2d,
+               normal, each 3 warm and 5 timed steps; ms/step, images/s,
+               peak memory, launches per step the layer count, forward conv
+               GFLOP per image of each form
+  train_tiramisu_a18  tiramisu67-512-b4 with packed growth, remat_policy
+               "conv_in", both, between two concat runs: ms/step, images/s,
+               peak memory, launches per step (120, 60, 0; conv_in 175, 115,
+               0), packed's copies of BatchNorm inputs, running statistics
+               updated once per step
   zoo_parity   the model zoo at full width (dilated_linknet34, gcn34, linknext,
                squeezenet, gcn, psp_net, duc, duc_dc): per model one fp32
                eval forward on the card (TF32 off) at 1x3x128^2 (1x3x64^2
@@ -162,7 +192,7 @@ Phases, one JSON line each; any failure exits non-zero:
                BatchNorms at momentum 0.95
   train_zoo    each zoo model at patch 512, bf16 autocast, bce, SGD lr 1e-3
                on one fixed DeviceShapes batch (16, or 8 over ResNet-101/
-               152): 3 warm and 5 timed steps; images/s, ms/step, peak
+               152): 3 warm and 3 timed steps; images/s, ms/step, peak
                memory, losses (finite; whether the last is below the first
                is reported, not gated), launches per step as the layer
                count, no copy of a BatchNorm input; the dtype of the
@@ -175,7 +205,7 @@ Phases, one JSON line each; any failure exits non-zero:
                tile batch 64, D4 TTA, bf16): s/image, a 0/255 mask, no
                kernel of this repo (eval-mode BatchNorm is F.batch_norm)
   wider_resnet one fp32 SGD step (cross-entropy, 10 classes) of
-               WideResNet-28-10 at 128x3x32x32, seeded, card (TF32 off)
+               WideResNet-28-10 at 32x3x32x32, seeded, card (TF32 off)
                against the CPU and float64 by train_parity's gates;
                launches (50, 25, 0), its 25 BatchNorms
   train_cli    the train CLI in process, in a temporary directory, three runs:
@@ -219,8 +249,9 @@ Phases, one JSON line each; any failure exits non-zero:
                deterministic); launches per
                step the layer count, host waits per train epoch, losses
                finite and falling
-  lr_finder    python -m segtpu_torch.lr_finder -m linknet34 -d shapes-device
-               (batch 16, patch 512, Adam): 30 finite losses and the PNG
+  lr_finder    segtpu_torch.lr_finder's main, in process, -m linknet34 -d
+               shapes-device (batch 16, patch 512, Adam): 30 finite losses
+               and the PNG
   train_nuclei the accuracy A/B of python -m segtpu_torch.ab_nuclei: the
                seeded nuclei fixture (48 images) in the DSB2018 layout, the
                train CLI's -d dsb2018 legs at patch 128, batch 8, fp32, 10
@@ -239,7 +270,7 @@ Phases, one JSON line each; any failure exits non-zero:
                val IoU repeat the leg's bits. --ab-out writes comparison.md
                and the port's CSVs
   train_nuclei_device_augs  the nuclei fixture's -d dsb2018 (linknet34,
-               patch 128, batch 8, fp32, Adam lr 1e-4): 2 epochs with the
+               patch 128, batch 8, fp32, Adam lr 1e-4): 1 epoch with the
                host augmentations and 2 with --device-augs, images/s of
                each; then the resumed run's draws, as train_cli_device_augs
   counters     after training, every cached counter buffer of the B1/B3
@@ -258,7 +289,8 @@ serve_zoo, wider_resnet's card step, each train_cli run, train_ab_cli,
 train_cli_albunet, each train_cli_device_augs run, each train_nuclei leg,
 each train_nuclei_device_augs run, each rank's train_dp timed steps,
 train_tp step and serve_tile_parallel bf16 pass, train_dp_cli, serve_ckpt's
-submit_cli run) and read
+submit_cli run, serve_host_slice's second host-sliced image, train_s2d's s2d
+runs, train_tiramisu_a18's packed and conv_in runs) and read
 just after it. Then the kernel table line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from a seed,
 with the normalisation statistics set from one calibration batch so that every
@@ -268,7 +300,9 @@ layer sees activations of order one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
+import io
 import json
 import os
 import re
@@ -277,6 +311,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import warnings
 from collections import Counter
 from pathlib import Path
@@ -287,7 +322,7 @@ import torch.nn.functional as F
 
 import torch.distributed as dist
 
-from segtpu_torch import ab_nuclei, submit_cli, train_ab_cli, train_cli
+from segtpu_torch import ab_nuclei, lr_finder, native, submit_cli, train_ab_cli, train_cli
 from segtpu_torch.compat.encoder_weights import install_encoder_weights
 from segtpu_torch.augment import host as aug
 from segtpu_torch.data import get_dataset
@@ -354,7 +389,7 @@ KERNEL_MODELS = {"linknet34": TRAIN_BATCH, "zf_unet": TRAIN_BATCH, "unet_abn": T
 ZOO_BATCH = {"dilated_linknet34": 16, "gcn34": 16, "linknext": 16, "squeezenet": 16,
              "gcn": 8, "psp_net": 8, "duc": 8, "duc_dc": 8}
 ZOO_SIDE = {m: 64 if b == 8 else 128 for m, b in ZOO_BATCH.items()}
-ZOO_STEPS = 5
+ZOO_STEPS = 3
 ZOO_PER_STEP = ("psp_net", "duc")
 # Zoo models with a bilinear upsampling in their head, by the module that
 # calls it: their step is also timed with it kept in bf16 (autocast runs it
@@ -375,15 +410,19 @@ PATHS = ("serve", "train", "train_zf_unet", "train_unet_abn", "train_tiramisu67"
          "train_unet11", "train_zoo", "train_cli_psp_net", "serve_zoo", "wider_resnet",
          "train_cli", "train_ab_cli", "train_cli_albunet", "train_cli_device_augs",
          "train_nuclei", "train_nuclei_device_augs", "train_dp", "train_dp_cli", "train_tp",
-         "serve_tile_parallel", "serve_ckpt")
+         "serve_tile_parallel", "serve_ckpt", "serve_host_slice", "train_s2d",
+         "train_tiramisu_packed", "train_tiramisu_conv_in")
 BN_PATHS = ("train_zf_unet", "train_tiramisu67", "train_albunet", "train_zoo",
-            "train_cli_psp_net", "train_cli_albunet", "wider_resnet")
+            "train_cli_psp_net", "train_cli_albunet", "wider_resnet", "train_tiramisu_packed",
+            "train_tiramisu_conv_in")
+# train_s2d's s2d runs: ZF_UNET's BatchNorms and UNetABN's InPlaceABNs
 ABN_PATHS = ("train", "train_unet_abn", "train_cli", "train_ab_cli", "train_nuclei",
              "train_cli_device_augs", "train_nuclei_device_augs", "train_dp", "train_dp_cli",
-             "train_tp")
+             "train_tp", "train_s2d")
 KERNEL_PATHS = {
     "channel_sums": ABN_PATHS + BN_PATHS,
-    "abn_norm_act": ("serve", "serve_tile_parallel", "serve_ckpt") + ABN_PATHS + BN_PATHS,
+    "abn_norm_act": ("serve", "serve_tile_parallel", "serve_ckpt", "serve_host_slice")
+                    + ABN_PATHS + BN_PATHS,
     "abn_bwd": ABN_PATHS}
 OPTIONAL_PACKAGES = ("pandas", "tqdm", "tensorboardX", "cv2", "sklearn", "ninja", "matplotlib",
                      "msgpack")
@@ -1371,17 +1410,22 @@ def _grad_summary(errs):
                 worst=[dict(name=n, err=e) for e, n in errs[:3]])
 
 
-def parity_runs(name, loss_name, x, y, variants, optimizer="sgd", freeze_encoder=False):
+def parity_runs(name, loss_name, x, y, variants, optimizer="sgd", freeze_encoder=False,
+                attrs=None):
     """One ``optimizer`` step of the seeded ``name`` model, dropout off, per
     variant ``(key, device, dtype)`` (key ``card_no_cudnn`` turns cuDNN off,
-    ``cpu_channels_last`` runs the CPU in channels_last memory;
-    ``freeze_encoder``: the encoder's gradients zeroed):
+    ``cpu_channels_last`` runs the CPU in channels_last memory, a key
+    ending in ``_normal`` leaves ``attrs`` unset;
+    ``freeze_encoder``: the encoder's gradients zeroed; ``attrs`` set on the
+    model, e.g. ``s2d=True``):
     ``{key: (loss, gradients, state, launches)}``, launches on the card."""
     runs = {}
     with fp32_convolutions():
         for key, device, dtype in variants:
             torch.backends.cudnn.enabled = key != "card_no_cudnn"
             model = no_dropout(seeded_model(device, name=name).to(dtype))
+            for attr, value in ({} if key.endswith("_normal") else attrs or {}).items():
+                setattr(model, attr, value)
             xb = x.to(device, dtype)
             if key == "cpu_channels_last":
                 model = model.to(memory_format=torch.channels_last)
@@ -1559,15 +1603,18 @@ def phase_albunet_parity():
 
 
 def train_run(name, loss_name, optimizer, warmup, steps, remat=False, batch=TRAIN_BATCH,
-              freeze_encoder=False):
+              freeze_encoder=False, attrs=None):
     """``warmup`` then ``steps`` timed full-width training steps of the
     seeded ``name`` model at ``batch``, patch 512, bf16 autocast, lr 1e-3, on
     one fixed DeviceShapes batch; ``freeze_encoder``: the encoder's gradients
-    zeroed. The launch counts and the copies of BatchNorm inputs (``_dense``)
-    are set to 0 just before the timed steps and read just after them."""
+    zeroed; ``attrs`` set on the model (``s2d``, ``packed``, ...). The launch
+    counts and the copies of BatchNorm inputs (``_dense``) are set to 0 just
+    before the timed steps and read just after them."""
     model = seeded_model("cuda", name=name)
     if remat:
         model.remat = True
+    for attr, value in (attrs or {}).items():
+        setattr(model, attr, value)
     names = [n for n, _ in model.named_parameters()]
     trainable = without_encoder(name, names) if freeze_encoder else None
     frozen = {n: p.detach().clone() for n, p in model.named_parameters()
@@ -1599,7 +1646,8 @@ def train_run(name, loss_name, optimizer, warmup, steps, remat=False, batch=TRAI
     losses = [float(v) for v in losses]
     params = dict(model.named_parameters())
     return dict(model=name, batch=batch, patch=PATCH, dtype="bf16 autocast", loss=loss_name,
-                optimizer=optimizer, lr=TRAIN_LR, remat=remat, warmup_steps=warmup, steps=steps,
+                optimizer=optimizer, lr=TRAIN_LR, remat=remat, attrs=attrs or {},
+                warmup_steps=warmup, steps=steps,
                 frozen_parameters=len(frozen),
                 frozen_unchanged=sum(torch.equal(p, params[n]) for n, p in frozen.items()),
                 images_per_s=batch * steps / seconds, ms_per_step=seconds * 1e3 / steps,
@@ -1861,7 +1909,7 @@ def _bf16_bilinear(x, out_hw, align_corners=True):
 
 def phase_train_zoo(smi: str):
     """Each zoo model at patch 512, bf16 autocast, bce, SGD lr 1e-3, on one
-    fixed DeviceShapes batch (ZOO_BATCH): 3 warm then 5 timed steps,
+    fixed DeviceShapes batch (ZOO_BATCH): 3 warm then ZOO_STEPS timed steps,
     launches per step as the layer count, finite losses, no copy of a
     BatchNorm input; whether the last loss is below the first is reported
     per model (``loss_fell``), and a model whose loss did not fall is
@@ -2514,8 +2562,8 @@ def phase_train_cli_device_augs(step_ms: float, tmpdir: Path):
 
 def phase_nuclei_device_augs(data_dir: Path, tmpdir: Path):
     """``-d dsb2018`` on the nuclei fixture that train_nuclei wrote
-    (linknet34, bce_jaccard, Adam lr 1e-4, patch 128, batch 8, fp32): 2
-    epochs with the host augmentations, then 2 with ``--device-augs``, each
+    (linknet34, bce_jaccard, Adam lr 1e-4, patch 128, batch 8, fp32): 1
+    epoch with the host augmentations, then 2 with ``--device-augs``, each
     counted as a train_cli run, their images/s side by side; then 1 epoch
     with ``--device-augs`` in a new directory and ``-r -e 2`` there, whose
     second epoch must draw what the unbroken run drew (as
@@ -2527,7 +2575,7 @@ def phase_nuclei_device_augs(data_dir: Path, tmpdir: Path):
             "--seed", str(ab_nuclei.RUN_SEEDS[0]), "--no-tensorboard", "--light-logging"]
     runs, launches, recorded = {}, Counter(), {}
     for label, exp, extra, epochs in (
-            ("host", "host", ["-e", "2"], 2), ("device", "device", ["-e", "2", "--device-augs"], 2),
+            ("host", "host", ["-e", "1"], 1), ("device", "device", ["-e", "2", "--device-augs"], 2),
             ("device_b", "device_b", ["-e", "1", "--device-augs"], 1),
             ("device_resumed", "device_b", ["-e", "2", "-r", "--device-augs"], 1)):
         with AugmentRecorder() as rec:
@@ -2552,14 +2600,15 @@ def phase_nuclei_device_augs(data_dir: Path, tmpdir: Path):
     return dict(launches)
 
 
-# WideResNet-28-10 (segtpu_torch.models.wider_resnet): 25 BatchNorms
-WRN_BATCH, WRN_SIDE = 128, 32
+# WideResNet-28-10 (segtpu_torch.models.wider_resnet): 25 BatchNorms; batch
+# 32 (128 before: the CPU's fp32 and float64 steps took 43-60 s)
+WRN_BATCH, WRN_SIDE = 32, 32
 WRN_LAUNCHES = step_launches(25, 0)
 
 
 def phase_wider_resnet():
     """One fp32 SGD step (lr 0.01, cross-entropy over 10 classes) of
-    WideResNet(depth=28, widen_factor=10), seeded, at 128x3x32^2: the card
+    WideResNet(depth=28, widen_factor=10), seeded, at 32x3x32^2: the card
     (TF32 off) against the CPU and the CPU in float64, by parity_verdict's
     gates; launches per step (50, 25, 0)."""
     from segtpu_torch.models import place_model
@@ -2601,28 +2650,28 @@ LR_FINDER_STEPS = 30
 
 
 def phase_lr_finder(tmpdir: Path):
-    """``python -m segtpu_torch.lr_finder`` as a user runs it: LinkNet34 on
-    shapes-device at batch 16, patch 512, bce_jaccard, Adam: 30 steps, then
-    the smoothed plot. Gates: 30 finite losses printed, a PNG written."""
+    """``segtpu_torch.lr_finder``'s entry point as a user calls it, in this
+    process (a new one cost 5-8 s of start-up): LinkNet34 on shapes-device
+    at batch 16, patch 512, bce_jaccard, Adam: 30 steps, then the smoothed
+    plot. Gates: 30 finite losses, a PNG written."""
     out = tmpdir / "loss_plot.png"
-    cmd = [sys.executable, "-m", "segtpu_torch.lr_finder", "-m", "linknet34",
-           "-d", "shapes-device", "-l", "bce_jaccard", "-o", "adam", "-b", str(TRAIN_BATCH),
-           "-p", str(PATCH), "--out", str(out)]
+    argv = ["-m", "linknet34", "-d", "shapes-device", "-l", "bce_jaccard", "-o", "adam",
+            "-b", str(TRAIN_BATCH), "-p", str(PATCH), "--out", str(out)]
+    printed, error, losses = io.StringIO(), "", []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
-                          cwd=Path(__file__).resolve().parent)
+    try:
+        with contextlib.redirect_stdout(printed):
+            _, losses = lr_finder.main(argv)
+    except (Exception, SystemExit):  # reported below, then the phase fails
+        error = traceback.format_exc()[-400:]
     seconds = time.perf_counter() - t0
-    text = proc.stdout
-    body = text[text.find("losses"):text.find("saved")] if "losses" in text else ""
-    losses = [float(v) for v in re.findall(r"[-+]?(?:\d+\.\d*(?:e[-+]?\d+)?|nan|inf)",
-                                           body[len("losses"):])]
+    losses = [float(v) for v in losses]
     png = out.exists() and out.read_bytes()[:4] == b"\x89PNG"
-    ok = (proc.returncode == 0 and len(losses) == LR_FINDER_STEPS
-          and all(np.isfinite(losses)) and png)
-    emit("lr_finder", returncode=proc.returncode, seconds=seconds, steps=len(losses),
+    ok = (not error and len(losses) == LR_FINDER_STEPS and all(np.isfinite(losses)) and png
+          and f"saved {out}" in printed.getvalue())
+    emit("lr_finder", seconds=seconds, steps=len(losses),
          first_loss=losses[0] if losses else None, last_loss=losses[-1] if losses else None,
-         min_loss=min(losses) if losses else None, png_written=png,
-         stderr_tail=proc.stderr[-400:] if proc.returncode else "", ok=bool(ok))
+         min_loss=min(losses) if losses else None, png_written=png, error=error, ok=bool(ok))
     if not ok:
         raise AssertionError("lr_finder failed")
 
@@ -2707,6 +2756,356 @@ def _per_step_entry(per_step):
             "library_ms_modelled_cold", "library_calls_modelled",
             "ms_modelled_cold_of_library_calls", "library_by_call_modelled_cold")
     return {model: {k: sums[k] for k in keys if k in sums} for model, sums in per_step.items()}
+
+
+# ---------------------------------------------------------------------------
+# s2d execution, Tiramisu's packed growth and conv_in, the host tile I/O
+# ---------------------------------------------------------------------------
+
+# The s2d forms whose normalisation inputs kernel_s2d checks, at their
+# training batch and patch 512: segtpu's bench form of zf_unet-512, UNetABN
+# (B3 on grouped statistics), tiramisu67 and tiramisu57 (block-wise parts
+# of 4 * (48 + 16k) and 4 * (48 + 12k) channels) and LinkNext's stem.
+S2D_MODELS = {"zf_unet": TRAIN_BATCH, "unet_abn": TRAIN_BATCH, "tiramisu67": TIRAMISU_BATCH,
+              "tiramisu57": TIRAMISU_BATCH, "linknext": ZOO_BATCH["linknext"]}
+# train_s2d: segtpu's two s2d bench configs and UNetABN, in turns normal,
+# s2d, s2d, normal; each run 3 warm and S2D_STEPS timed steps
+S2D_CONFIGS = (("zf_unet-512", "zf_unet", "bce", "sgd", False),
+               ("unet11-finetune-512", "unet11", "bce", "adam", True),
+               ("unet_abn-512", "unet_abn", "bce_jaccard", "adam", False))
+S2D_STEPS = 5
+# train_tiramisu_a18: tiramisu67-512-b4 with segtpu's A18 options, 2 warm
+# and A18_STEPS timed steps each, concat first and last
+A18_VARIANTS = (("concat", {}), ("packed", dict(packed=True)),
+                ("conv_in", dict(remat_policy="conv_in")),
+                ("packed_conv_in", dict(packed=True, remat_policy="conv_in")), ("concat_again", {}))
+A18_STEPS = 3
+# tiramisu67 under remat_policy="conv_in": the BatchNorms of its 55 dense
+# layers run their forward again in the backward (B1 3 and B2 2 per layer),
+# its 5 transitions' as without it
+CONV_IN_LAUNCHES = {"channel_sums": 55 * 3 + 5 * 2, "abn_norm_act": 55 * 2 + 5, "abn_bwd": 0}
+# BatchNorm inputs that packed growth copies per forward: each dense layer's
+# strided prefix of its block's buffer (B1 and B2 take dense inputs only)
+PACKED_COPIES = 55
+
+
+def s2d_step_shapes():
+    """``{model: step_norm_shapes}`` of the s2d forms of S2D_MODELS."""
+    return {m: step_norm_shapes(b, PATCH, model_name=m, s2d=True) for m, b in S2D_MODELS.items()}
+
+
+def conv_gflop_per_image(name, attrs):
+    """Forward convolution GFLOP (2 per MAC) of one 512x512 image through the
+    seeded ``name`` with ``attrs`` set, counted by torch's FlopCounterMode on
+    the CPU at 64x64 and scaled by the pixel count (every layer's work is
+    proportional to it)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    model = seeded_model("cpu", name=name)
+    for attr, value in attrs.items():
+        setattr(model, attr, value)
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        model(torch.zeros(1, 3, 64, 64))
+    return counter.get_total_flops() * (PATCH // 64) ** 2 / 1e9
+
+
+def phase_kernel_s2d(card: str, s2d_shapes, normal_shapes, checked):
+    """B1 (both forms) and B2 (none and leaky_relu) against their plain
+    versions at every normalisation input shape of the s2d forms' steps that
+    the earlier kernel phases did not check (``checked``), B3 (leaky_relu)
+    at every InPlaceABN input of the s2d steps, bf16 channels_last; then the
+    largest shape of each s2d level (a call of the s2d form's step that its
+    normal form's step, ``normal_shapes``, does not make) timed beside the plain
+    versions and the library calls (warm medians of 20). Returns
+    ``{kernel: entry}`` for the kernel table."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    unique = [s for s in _unique(s2d_shapes, ("bn", "abn")) if s not in checked]
+    abn_unique = _unique(s2d_shapes, ("abn",))
+    errs = {"channel_sums": 0.0, "abn_norm_act": 0.0, "abn_bwd": 0.0}
+    for shape in unique:
+        for pair in (False, True):
+            a = cuda_input(shape, torch.bfloat16, "channels_last", g)
+            b = cuda_input(shape, torch.bfloat16, "channels_last", g, 0.0, 1.0) if pair else None
+            errs["channel_sums"] = max(errs["channel_sums"], _b1_case(a, b)[0])
+            del a, b
+        x = cuda_input(shape, torch.bfloat16, "channels_last", g)
+        scale = torch.rand(shape[1], device="cuda", generator=g) + 0.5
+        shift = torch.randn(shape[1], device="cuda", generator=g)
+        for act in ("none", "leaky_relu"):
+            errs["abn_norm_act"] = max(errs["abn_norm_act"], _check(x, scale, shift, act, (8e-3, 0.0)))
+        del x
+    for shape in abn_unique:
+        z, grad, gamma, beta = _abn_output(shape, torch.bfloat16, "channels_last", "leaky_relu", g)
+        errs["abn_bwd"] = max(errs["abn_bwd"], _b3_case(z, grad, gamma, beta, "leaky_relu")[0])
+        del z, grad
+    if not unique or not abn_unique:
+        raise AssertionError(f"kernel_s2d: no s2d shape to check ({unique}, {abn_unique})")
+
+    timed = {}
+
+    def timing(shape):
+        if shape in timed:
+            return timed[shape]
+        a = cuda_input(shape, torch.bfloat16, "channels_last", g)
+        b = cuda_input(shape, torch.bfloat16, "channels_last", g, 0.0, 1.0)
+        scale = torch.rand(shape[1], device="cuda", generator=g) + 0.5
+        shift = torch.randn(shape[1], device="cuda", generator=g)
+        n, c = a.numel(), shape[1]
+        single_lib = b1_library_calls(a, None, "single")
+        pair_lib = b1_library_calls(a, b, "pair")
+        timed[shape] = dict(
+            shape=list(shape),
+            channel_sums=timing_entry(
+                n * 2 + 2 * 4 * c, 3 * n, card, ms=cuda_ms(lambda: kernels.channel_sums_cuda(a)),
+                plain_ms=cuda_ms(lambda: channel_sums_plain(a)),
+                library_ms=cuda_ms(single_lib["var_mean"])),
+            channel_sums_pair=timing_entry(
+                2 * n * 2 + 2 * 4 * c, 3 * n, card,
+                ms=cuda_ms(lambda: kernels.channel_sums_cuda(a, b)),
+                plain_ms=cuda_ms(lambda: channel_sums_plain(a, b)),
+                library_ms=cuda_ms(pair_lib["batch_norm_backward_reduce"])),
+            abn_norm_act=timing_entry(
+                2 * n * 2 + 2 * 4 * c, 3 * n, card,
+                ms=cuda_ms(lambda: kernels.abn_norm_act_cuda(a, scale, shift, "none", SLOPE)),
+                plain_ms=cuda_ms(lambda: abn_norm_act_plain(a, scale, shift, "none", SLOPE)),
+                library_ms=cuda_ms(batch_norm_affine(a, scale, shift))))
+        return timed[shape]
+
+    def s2d_level(model, kinds):
+        # the calls of the s2d form's step that its normal form's lacks
+        extra = (Counter(s for k in kinds for s in s2d_shapes[model][k])
+                 - Counter(s for k in kinds for s in normal_shapes[model][k]))
+        return list(extra)
+
+    largest = {m: timing(_largest(s2d_level(m, ("bn", "abn")))) for m in s2d_shapes}
+    big_abn = _largest(s2d_level("unet_abn", ("abn",)))
+    z, grad, gamma, beta = _abn_output(big_abn, torch.bfloat16, "channels_last", "leaky_relu", g)
+    n, c = z.numel(), big_abn[1]
+    b3 = dict(shape=list(big_abn), activation="leaky_relu", **timing_entry(
+        2 * n * 2 + 4 * 4 * c, 8 * n, card,
+        ms=cuda_ms(lambda: kernels.abn_bwd_sums_cuda(z, grad, gamma, beta, "leaky_relu", SLOPE)),
+        plain_ms=cuda_ms(lambda: abn_bwd_sums_plain(z, grad, gamma, beta, "leaky_relu", SLOPE)),
+        library_ms=None))
+    del z, grad
+    emit("kernel_s2d", card=card, new_shapes=[list(s) for s in unique],
+         new_abn_shapes=[list(s) for s in abn_unique], max_abs_err=errs,
+         tolerance={"channel_sums": f"per channel |err| <= {RTOL_SUM} * sum|term| + 1e-6",
+                    "abn_norm_act": "rtol 8e-3 (one bf16 ulp)",
+                    "abn_bwd": f"per channel |err| <= {RTOL_SUM} * sum|term| + 1e-6"},
+         largest_s2d_level_by_model=largest, abn_bwd_largest=b3,
+         timing="device time, warm medians of 20; library: torch.var_mean (single), "
+                "torch.batch_norm_backward_reduce (pair), F.batch_norm over mean 0, var 1 "
+                "(B2's activation-none form)")
+    return {"channel_sums": dict(max_abs_err=errs["channel_sums"], new_shapes=len(unique),
+                                 largest_by_model={m: dict(single=r["channel_sums"],
+                                                           pair=r["channel_sums_pair"],
+                                                           shape=r["shape"])
+                                                   for m, r in largest.items()}),
+            "abn_norm_act": dict(max_abs_err=errs["abn_norm_act"], new_shapes=len(unique),
+                                 largest_by_model={m: dict(r["abn_norm_act"], shape=r["shape"])
+                                                   for m, r in largest.items()}),
+            "abn_bwd": dict(max_abs_err=errs["abn_bwd"], shapes=len(abn_unique), largest=b3)}
+
+
+def phase_s2d_parity():
+    """One fp32 SGD step (dropout off, TF32 off) of full-width ZF_UNET (bce)
+    and UNetABN (bce_jaccard) in s2d form on 2x3x128x128 SHAPES: the card
+    against the CPU and float64 by PARITY_TOL, launches the layer count; and
+    the card's s2d step against its own normal-space step by the same loss
+    and gradient gates and the running-statistics tolerance."""
+    xs, ys = to_nchw([ShapesDataset(2, 128, seed=SEED + 34)[i] for i in range(2)])
+    t, out, ok = PARITY_TOL, {}, True
+    for name, loss_name in (("zf_unet", "bce"), ("unet_abn", "bce_jaccard")):
+        runs = parity_runs(name, loss_name, xs, ys,
+                           STEP_VARIANTS + (("card_normal", "cuda", torch.float32),),
+                           attrs=dict(s2d=True))
+        fields, step_ok = parity_verdict(runs, MODEL_STEP_LAUNCHES[name])
+        (loss_s, grads_s, state_s, _), (loss_n, grads_n, state_n, launches_n) = (
+            runs["card"], runs["card_normal"])
+        versus = _grad_summary(_grad_errors(grads_s, grads_n))
+        stats_ok, stats_err = True, 0.0
+        for k, v in state_n.items():
+            if k.endswith(("running_mean", "running_var")):
+                err = (state_s[k] - v).abs()
+                stats_err = max(stats_err, float(err.max()))
+                stats_ok &= bool((err <= t["stats_atol"] + t["stats_rtol"] * v.abs()).all())
+        normal_ok = (abs(loss_s - loss_n) <= t["loss_rtol"] * abs(loss_n) and stats_ok
+                     and versus["median"] <= t["grad_median"] and versus["max"] <= t["grad_max"]
+                     and launches_n == MODEL_STEP_LAUNCHES[name])
+        out[name] = dict(fields, s2d_vs_normal_on_card=dict(
+            loss_normal=loss_n, grad_err=versus, max_running_stat_err=stats_err,
+            normal_launches=launches_n, ok=bool(normal_ok)), step_ok=step_ok)
+        ok &= step_ok and normal_ok
+    emit("s2d_parity", step_input=[2, 3, 128, 128], lr=PARITY_LR, models=out, ok=bool(ok))
+    if not ok:
+        raise AssertionError("s2d_parity failed")
+
+
+def _summary(runs):
+    return dict(ms_per_step=[r["ms_per_step"] for r in runs],
+                images_per_s=[r["images_per_s"] for r in runs],
+                peak_gb=[r["max_memory_allocated"] / 1e9 for r in runs],
+                first_loss=runs[0]["first_loss"], last_loss=runs[0]["last_loss"],
+                launches_per_step=runs[0]["launches_per_step"])
+
+
+def phase_train_s2d(smi: str):
+    """segtpu's s2d bench form of zf_unet-512 and unet11-finetune-512, and
+    UNetABN (B3 on grouped statistics), at batch 16, patch 512, bf16, lr
+    1e-3: in turns normal, s2d, s2d, normal, each 3 warm and S2D_STEPS timed
+    steps; ms/step, images/s and peak memory of each, launches per step the
+    layer count in both forms, frozen encoders unchanged, the four runs'
+    first losses within PARITY_TOL's loss_rtol of each other; the forward conv
+    GFLOP per image of both forms (FlopCounterMode on the CPU). The launch
+    counts of the s2d runs are returned."""
+    rows, counts, ok = {}, Counter(), True
+    for config, name, loss_name, optimizer, freeze in S2D_CONFIGS:
+        runs = [train_run(name, loss_name, optimizer, TRAIN_WARMUP, S2D_STEPS,
+                          freeze_encoder=freeze, attrs=dict(s2d=on))
+                for on in (False, True, True, False)]
+        for run in runs[1:3]:
+            counts.update(run["launches"])
+        normal, s2d_runs = _summary([runs[0], runs[3]]), _summary(runs[1:3])
+        # the same first loss in both forms: the fp32 loss rule
+        first_ok = all(abs(r["first_loss"] - runs[0]["first_loss"])
+                       <= PARITY_TOL["loss_rtol"] * abs(runs[0]["first_loss"]) for r in runs)
+        run_ok = first_ok and all(_run_ok(r, MODEL_STEP_LAUNCHES[name], decreasing=False)
+                                  and r["frozen_unchanged"] == r["frozen_parameters"]
+                                  for r in runs)
+        rows[config] = dict(
+            model=name, loss=loss_name, optimizer=optimizer, freeze_encoder=freeze,
+            normal=normal, s2d=s2d_runs,
+            s2d_over_normal_ms=float(np.mean(s2d_runs["ms_per_step"])
+                                     / np.mean(normal["ms_per_step"])),
+            first_losses=[r["first_loss"] for r in runs], first_loss_ok=bool(first_ok),
+            first_loss_rtol=PARITY_TOL["loss_rtol"],
+            conv_gflop_per_image={"normal": conv_gflop_per_image(name, dict(s2d=False)),
+                                  "s2d": conv_gflop_per_image(name, dict(s2d=True))},
+            ok=bool(run_ok))
+        ok &= run_ok
+        torch.cuda.empty_cache()
+    emit("train_s2d", card=smi, batch=TRAIN_BATCH, patch=PATCH, dtype="bf16 autocast",
+         order="normal, s2d, s2d, normal", warmup_steps=TRAIN_WARMUP, steps=S2D_STEPS,
+         configs=rows, ok=bool(ok))
+    if not ok:
+        raise AssertionError("train_s2d checks failed")
+    return dict(counts)
+
+
+def phase_train_tiramisu_a18(smi: str):
+    """tiramisu67-512-b4 (batch 4, patch 512, bf16, bce, SGD lr 1e-3) with
+    segtpu's A18 options: concat, packed, remat_policy="conv_in", both, and
+    concat again, each 2 warm and A18_STEPS timed steps: ms/step, images/s,
+    peak memory; launches per step (120, 60, 0), under conv_in (175, 115,
+    0); the BatchNorm inputs packed growth copies (55 per forward); running
+    statistics updated once per step; every form's first loss within
+    PARITY_TOL's loss_rtol of concat's. Returns the launch counts of the
+    packed and conv_in paths."""
+    rows, counts, ok = {}, {}, True
+    for label, attrs in A18_VARIANTS:
+        run = train_run("tiramisu67", "bce", "sgd", 2, A18_STEPS, batch=TIRAMISU_BATCH,
+                        attrs=attrs)
+        conv_in = "remat_policy" in attrs
+        expected = CONV_IN_LAUNCHES if conv_in else MODEL_STEP_LAUNCHES["tiramisu67"]
+        copies = PACKED_COPIES * (2 if conv_in else 1) * A18_STEPS if attrs.get("packed") else 0
+        run_ok = (all(np.isfinite(run["losses"]))
+                  and run["launches_per_step"] == {k: float(v) for k, v in expected.items()}
+                  and run["dense_copies"] == copies
+                  and run["num_batches_tracked"] == [2 + A18_STEPS])
+        rows[label] = dict({k: run[k] for k in ("attrs", "ms_per_step", "images_per_s",
+                                                "max_memory_allocated", "first_loss",
+                                                "last_loss", "launches_per_step", "dense_copies",
+                                                "num_batches_tracked")},
+                           expected_launches_per_step=expected, expected_dense_copies=copies,
+                           ok=bool(run_ok))
+        ok &= run_ok
+        if label == "packed":
+            counts["train_tiramisu_packed"] = run["launches"]
+        elif label == "conv_in":
+            counts["train_tiramisu_conv_in"] = run["launches"]
+        torch.cuda.empty_cache()
+    # the same first loss in every form: the fp32 loss rule
+    first = rows["concat"]["first_loss"]
+    first_ok = all(abs(r["first_loss"] - first) <= PARITY_TOL["loss_rtol"] * abs(first)
+                   for r in rows.values())
+    ok &= first_ok
+    emit("train_tiramisu_a18", card=smi, config="tiramisu67-512-b4", steps=A18_STEPS,
+         variants=rows, first_loss_ok=bool(first_ok), first_loss_rtol=PARITY_TOL["loss_rtol"],
+         ok=bool(ok))
+    if not ok:
+        raise AssertionError("train_tiramisu_a18 checks failed")
+    return counts
+
+
+def phase_serve_host_slice(state_dict, smi: str):
+    """One seeded 5000x5000 image served as the submit CLI serves it
+    (LinkNet34, patch 512, batch 64, D4 TTA, pyramid weights, bf16) with the
+    tiles cut on the host (``slice_on_device=False``: native tile I/O, each
+    chunk's tiles uploaded) and on the device, in turns device, host, host,
+    device: probabilities within 1e-6, s/image of each, B2's launches of the
+    host path (the counts set to 0 just before its second run); the native
+    split's and NumPy's seconds for the image's 361 tiles. Then LinkNet34's
+    s2d form (its head's 3x3 conv at 513^2) on a 1024^2 crop: fp32 (TF32 off)
+    probabilities within 1e-4 of normal space's, and the bf16 masks'
+    agreement. Returns the host path's launches."""
+    model = seeded_model("cuda", state_dict)
+    transform = aug.Sequential([aug.ImageOnly(aug.NormalizeImage(mean=INRIA_MEAN, std=INRIA_STD))])
+    image = np.random.default_rng(SEED + 95).integers(0, 256, (IMAGE_SIDE, IMAGE_SIDE, 3),
+                                                      dtype=np.uint8)
+    fn = make_predict_step(model, bf16=True)
+    kw = dict(test_transform=transform, patch_size=PATCH, batch_size=BATCH, tta=True,
+              weight="pyramid", device="cuda")
+    t0 = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t0
+    seconds, probs, launches = {"device": [], "host": []}, {}, None
+    native.extract_tiles.calls = 0
+    for label in ("device", "host", "host", "device"):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        probs[label] = predict_tiled(image, fn, slice_on_device=label == "device", **kw)
+        seconds[label].append(time.perf_counter() - t0)
+        if label == "host":
+            launches = kernels.launch_counts()
+    native_calls = native.extract_tiles.calls
+    prob_diff = float(np.abs(probs["host"] - probs["device"]).max())
+    slicer = ImageSlicer(image.shape, PATCH, PATCH // 2)
+    n_tiles = len(slicer.crops)
+    t0 = time.perf_counter()
+    tiles = slicer.split_batch(image)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    same = np.array_equal(np.stack(slicer.split(image)), tiles)
+    numpy_s = time.perf_counter() - t0
+    del tiles
+
+    crop = image[:1024, :1024]
+    got = {}
+    for s2d_on in (False, True):
+        model.s2d = s2d_on
+        with fp32_convolutions():
+            p32 = predict_tiled(crop, make_predict_step(model), **kw)
+        got[s2d_on] = (p32, predict_tiled(crop, make_predict_step(model, bf16=True), **kw))
+    model.s2d = False
+    s2d_fp32_diff = float(np.abs(got[True][0] - got[False][0]).max())
+    s2d_bf16_agree = float(((got[True][1] > 0.5) == (got[False][1] > 0.5)).mean())
+    passes = -(-n_tiles // (BATCH // 8))
+    ok = (prob_diff <= 1e-6 and same and np.isfinite(probs["host"]).all() and native_calls == 2
+          and launches["abn_norm_act"] == passes * 12 and s2d_fp32_diff <= 1e-4
+          and s2d_bf16_agree >= 0.99)
+    emit("serve_host_slice", card=smi, image=[IMAGE_SIDE, IMAGE_SIDE, 3], patch=PATCH,
+         batch=BATCH, tta=8, dtype="bfloat16", order="device, host, host, device",
+         s_per_image=seconds, host_vs_device_max_prob_diff=prob_diff, tolerance="atol 1e-6",
+         launches=launches, expected_abn_norm_act=passes * 12, native_build_s=build_s,
+         native_extract_calls=native_calls,
+         split_tiles=n_tiles, native_split_s=native_s, numpy_split_s=numpy_s,
+         native_split_equals_numpy=same, s2d_crop=[1024, 1024],
+         s2d_vs_normal_fp32_max_prob_diff=s2d_fp32_diff, s2d_fp32_tolerance="atol 1e-4",
+         s2d_vs_normal_bf16_mask_agreement=s2d_bf16_agree, ok=bool(ok))
+    if not ok:
+        raise AssertionError("serve_host_slice checks failed")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3066,10 +3465,15 @@ def main(argv=None) -> int:
                   if NORM_LAYERS[m][0]}
     fp32_shapes = dict(nuclei_shapes, **{
         f"{m} parity": step_norm_shapes(2, 64, model_name=m) for m in zoo_shapes})
+    s2d_shapes = s2d_step_shapes()
     torch.cuda.empty_cache()
     b1, b1_err = phase_kernel_b1(card, norm_shapes, fp32_shapes, zoo_shapes)
     b3, b3_err = phase_kernel_b3(card, norm_shapes, nuclei_shapes)
     b2, b2_err = phase_kernel_b2(card, norm_shapes, fp32_shapes, zoo_shapes)
+    torch.cuda.empty_cache()
+    s2d_kernels = phase_kernel_s2d(card, s2d_shapes, dict(norm_shapes, **zoo_shapes),
+                                   set(_unique(norm_shapes, ("bn", "abn")))
+                                   | set(_unique(zoo_shapes, ("bn",))))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         state_dict = phase_model_parity(Path(tmp))
@@ -3083,6 +3487,7 @@ def main(argv=None) -> int:
         counts["train_dp_cli"] = phase_train_dp_cli(step_ms, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         counts["serve_ckpt"] = phase_serve_ckpt(state_dict, Path(tmp))
+    counts["serve_host_slice"] = phase_serve_host_slice(state_dict, smi)
     torch.cuda.empty_cache()
     phase_zf_unet_parity()
     counts["train_zf_unet"] = phase_train_zf_unet(smi)
@@ -3094,6 +3499,10 @@ def main(argv=None) -> int:
     phase_albunet_parity()
     counts["train_albunet"], albunet_ms = phase_train_albunet(smi)
     counts["train_unet11"] = phase_train_unet11(smi)
+    torch.cuda.empty_cache()
+    phase_s2d_parity()
+    counts["train_s2d"] = phase_train_s2d(smi)
+    counts.update(phase_train_tiramisu_a18(smi))
     torch.cuda.empty_cache()
     phase_zoo_parity()
     counts["train_zoo"] = phase_train_zoo(smi)
@@ -3141,6 +3550,7 @@ def main(argv=None) -> int:
                      zoo_largest_by_model=b1["zoo_largest_by_model"],
                      scalar_loads={k: v for k, v in b1["scalar_loads"].items() if k != "per_shape"},
                      per_step=_per_step_entry(b1["per_step"]),
+                     s2d=s2d_kernels["channel_sums"],
                      launches_by_path=by_path["channel_sums"]),
         kernel_entry("B2", "abn_norm_act", "segtpu/ops/bn_alt.py:181",
                      sum(by_path["abn_norm_act"].values()), b2_err, dict(b2, library_ms=None),
@@ -3149,10 +3559,12 @@ def main(argv=None) -> int:
                      zoo_largest_by_model=b2["zoo_largest_by_model"],
                      batch_norm_affine=b2["batch_norm_affine"], c_sweep=b2["c_sweep"],
                      per_step=_per_step_entry(b2["per_step"]),
+                     s2d=s2d_kernels["abn_norm_act"],
                      launches_by_path=by_path["abn_norm_act"]),
         kernel_entry("B3", "abn_bwd", "segtpu/ops/bn_alt.py:216", sum(by_path["abn_bwd"].values()),
                      b3_err, b3, activation="leaky_relu", largest_linknet34=b3["largest_linknet34"],
                      per_step=_per_step_entry(b3["per_step"]),
+                     s2d=s2d_kernels["abn_bwd"],
                      launches_by_path=by_path["abn_bwd"]),
     ]}), flush=True)
     print(smi, flush=True)

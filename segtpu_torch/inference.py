@@ -11,6 +11,12 @@ run on the device too, and only the mask comes back.
 ``predict_fn(x: (N, C, H, W)) -> (N, 1, H, W)`` sigmoid probabilities on
 the device of ``x`` — typically :func:`segtpu_torch.train.state.make_predict_step`.
 
+``slice_on_device=False`` (segtpu/inference.py:142-287): the host cuts the
+tiles with the native extractor (:meth:`ImageSlicer.split_batch`, in the
+producer thread of the stream) and uploads each chunk's tiles, in their
+upload dtype, in place of the image; the affine, the sweep and the merge
+are the device path's, so the probabilities are the same.
+
 Tile-parallel (``grid`` with a data axis of N ranks; segtpu/inference.py:159-215,
 351-365): each chunk is rounded up to a multiple of N tiles and rank r runs
 the r-th N-th of every chunk; each rank folds its weighted tiles into the
@@ -121,13 +127,16 @@ def predict_full(image: np.ndarray, predict_fn: Callable, test_transform=None,
 class _Prepared:
     """Host half of one tiled prediction: the padded image, the slicer and
     the crop origins of every chunk (the tail repeats crop 0; its result is
-    dropped before the merge)."""
+    dropped before the merge); with ``slice_on_device=False`` the tiles
+    themselves, ``(T, p, p, C)``, in place of the padded image."""
 
     def __init__(self, image: np.ndarray, test_transform, patch_size: int,
-                 batch_size: int, tta: bool, weight: str, n_ranks: int = 1):
+                 batch_size: int, tta: bool, weight: str, n_ranks: int = 1,
+                 slice_on_device: bool = True):
         image, self.affine = _host_image(image, test_transform)
         self.slicer = ImageSlicer(image.shape, patch_size, patch_size // 2, weight=weight)
-        self.padded = self.slicer.pad(image)
+        self.padded = self.slicer.pad(image) if slice_on_device else None
+        self.tiles = None if slice_on_device else self.slicer.split_batch(image)
         self.n_tiles = len(self.slicer.crops)
         self.chunk = max(1, batch_size // 8) if tta else batch_size
         # tile-parallel: a whole number of tiles per rank in every chunk
@@ -149,21 +158,41 @@ def _gather_tiles(image: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, patch
     return image[:, rows, cols].transpose(0, 1)
 
 
+def _upload_tiles(tiles: np.ndarray, affine, device: torch.device) -> torch.Tensor:
+    """Host tiles ``(N, p, p, C)`` -> ``(N, C, p, p)`` float32 on ``device``,
+    the affine applied there as :func:`_upload` applies it."""
+    x = torch.from_numpy(np.ascontiguousarray(tiles)).to(device).permute(0, 3, 1, 2).float()
+    if affine is None:
+        return x
+    scale, mean, std = affine
+    mean = torch.as_tensor(mean, dtype=torch.float32, device=device).view(1, -1, 1, 1)
+    std = torch.as_tensor(std, dtype=torch.float32, device=device).view(1, -1, 1, 1)
+    return (x * float(scale) - mean) / std
+
+
 def _dispatch(prep: _Prepared, predict_fn: Callable, tta: bool, threshold: Optional[float],
               device: torch.device, grid: Optional[Grid] = None) -> torch.Tensor:
     """Device half: upload, chunked sweep (this rank's share of each chunk
     under a grid), merge and threshold. Returns the (H, W) mask on the
     device without waiting for it."""
     n, rank = (grid.data_size, grid.data_rank) if grid is not None else (1, 0)
-    image = _upload(prep.padded, prep.affine, device)
-    ys = torch.from_numpy(prep.ys).to(device)
-    xs = torch.from_numpy(prep.xs).to(device)
     patch = prep.slicer.tile_size
     share = prep.chunk // n
+    if prep.tiles is None:
+        image = _upload(prep.padded, prep.affine, device)
+        ys = torch.from_numpy(prep.ys).to(device)
+        xs = torch.from_numpy(prep.xs).to(device)
+    else:
+        # the tail repeats tile 0, as the device path repeats crop 0
+        index = np.arange(prep.n_chunks * prep.chunk)
+        index[prep.n_tiles:] = 0
     preds = []
     for i in range(prep.n_chunks):
         sl = slice(i * prep.chunk + rank * share, i * prep.chunk + (rank + 1) * share)
-        x = _gather_tiles(image, ys[sl], xs[sl], patch)
+        if prep.tiles is None:
+            x = _gather_tiles(image, ys[sl], xs[sl], patch)
+        else:
+            x = _upload_tiles(prep.tiles[index[sl]], prep.affine, device)
         if tta:
             x = tta_d4_aug_batch(x)
         y = predict_fn(x)
@@ -191,14 +220,18 @@ def _ranks(grid: Optional[Grid]) -> int:
 def predict_tiled(image: np.ndarray, predict_fn: Callable, test_transform=None,
                   patch_size: int = 224, batch_size: int = 8, tta: bool = True,
                   weight: str = "pyramid", threshold: Optional[float] = None,
-                  device: DeviceLike = None, grid: Optional[Grid] = None) -> np.ndarray:
+                  device: DeviceLike = None, grid: Optional[Grid] = None,
+                  slice_on_device: bool = True) -> np.ndarray:
     """Sliding-window tiled prediction with weighted fusion and D4 TTA
     (reference predict_tiled, inria_submit.py:237-257: step = patch/2,
     pyramid weights). Returns the HW float32 probabilities, or the uint8
     0/255 mask when ``threshold`` is given. ``grid``: tile-parallel over its
-    data ranks (module docstring); every rank returns the whole result."""
+    data ranks (module docstring); every rank returns the whole result.
+    ``slice_on_device=False``: the tiles are cut on the host (module
+    docstring)."""
     dev = resolve_device(device)
-    prep = _Prepared(image, test_transform, patch_size, batch_size, tta, weight, _ranks(grid))
+    prep = _Prepared(image, test_transform, patch_size, batch_size, tta, weight, _ranks(grid),
+                     slice_on_device)
     return _dispatch(prep, predict_fn, tta, threshold, dev, grid).cpu().numpy()
 
 
@@ -207,7 +240,7 @@ def predict_tiled_stream(items: Iterable[Tuple[object, Callable[[], np.ndarray]]
                          patch_size: int = 224, batch_size: int = 8, tta: bool = True,
                          weight: str = "pyramid", threshold: Optional[float] = None,
                          depth: int = 1, device: DeviceLike = None,
-                         grid: Optional[Grid] = None):
+                         grid: Optional[Grid] = None, slice_on_device: bool = True):
     """Pipelined :func:`predict_tiled` over many images: yields ``(key, mask)``
     in input order.
 
@@ -215,7 +248,7 @@ def predict_tiled_stream(items: Iterable[Tuple[object, Callable[[], np.ndarray]]
     producer thread loads and prepares image i+1 on the host (NumPy only)
     while this thread uploads and launches the sweep of image i; up to
     ``depth`` masks stay on the device before the oldest is fetched.
-    ``depth=0`` is the serial path. ``grid``: tile-parallel, as
+    ``depth=0`` is the serial path. ``grid`` and ``slice_on_device``: as
     :func:`predict_tiled`."""
     dev = resolve_device(device)
     items = list(items)
@@ -238,7 +271,7 @@ def predict_tiled_stream(items: Iterable[Tuple[object, Callable[[], np.ndarray]]
         try:
             for key, load_fn in items:
                 prep = _Prepared(load_fn(), test_transform, patch_size, batch_size,
-                                 tta, weight, _ranks(grid))
+                                 tta, weight, _ranks(grid), slice_on_device)
                 if not put((key, prep, None)):
                     return
         except BaseException as e:  # handed to the consumer, which raises it

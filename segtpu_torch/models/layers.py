@@ -22,21 +22,41 @@ statistics of the global batch over that group, and its running statistics
 take the global mean and unbiased variance. The dropouts draw the mask of the
 global batch and keep their rank's rows (:func:`set_data_shard`), so N ranks
 draw the masks one process draws on the same global batch.
+
+s2d execution (segtpu's ``S2DConv``, ``DeconvS2D``, ``stat_groups``,
+``stat_parts`` and ``Dropout2d(groups)``; :mod:`segtpu_torch.ops.s2d`): the
+models keep their dense modules and evaluate them in s2d form on request,
+so a model's ``state_dict`` is the same in both forms. :func:`s2d_conv` and
+:func:`deconv_s2d` apply a conv's or a transposed conv's dense weight
+through the expanded kernel; the normalisation layers take ``parts`` (their
+own ``stat_groups`` / ``stat_parts`` by default) and combine their
+statistics over the sub-positions; ``Dropout2d`` takes ``groups`` and draws
+one mask per true channel, the draw that ``groups=1`` makes.
+
+s2d under tensor parallelism (``--s2d --model-parallel N``): an expanded
+kernel and grouped statistics mix the channels that a shard splits, so a
+sharded module evaluated in s2d form uses its whole weights (:func:`whole`,
+an all-gather over the model group whose backward keeps the rank's part of
+the gradient) and computes its output on every rank of the group; a
+normalisation layer updates its shard of the running statistics.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import threading
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.distributed as dist
 import torch.utils.checkpoint
 from torch import nn
 
 from segtpu_torch.ops import abn as abn_ops
+from segtpu_torch.ops import s2d as s2d_ops
 from segtpu_torch.parallel import group_size
 
 # Set while torch.utils.checkpoint recomputes a block (see :func:`remat`), in
@@ -54,15 +74,55 @@ def _recomputing():
         _recompute.on = before
 
 
-def remat(block: nn.Module, *args: torch.Tensor) -> torch.Tensor:
-    """``block(*args)`` that keeps none of its activations for the backward
-    pass and recomputes them there (segtpu's ``nn.remat``), through
+def remat(block, *args: torch.Tensor, **kwargs) -> torch.Tensor:
+    """``block(*args, **kwargs)`` that keeps none of its activations for the
+    backward pass and recomputes them there (segtpu's ``nn.remat``), through
     ``torch.utils.checkpoint`` (non-reentrant, RNG state preserved, so a
     dropout draws the same mask again). During the recompute the
     normalisation layers leave their running statistics alone."""
     return torch.utils.checkpoint.checkpoint(
         block, *args, use_reentrant=False,
-        context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing()), **kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
+class Shards:
+    """How tensor parallelism cut a module (``module.tp_shards``, set by
+    :func:`segtpu_torch.parallel.tensor.shard_model`): the dim of each
+    sharded tensor by attribute name, the model group and this rank's
+    place in it."""
+
+    dims: Dict[str, int]
+    group: object
+    rank: int
+    size: int
+
+
+class _GatherShard(torch.autograd.Function):
+    """A shard made whole over the model group (all-gather along ``dim``);
+    the backward keeps this rank's part of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, dim: int, shards: Shards):
+        ctx.dim, ctx.rank, ctx.width = dim, shards.rank, t.shape[dim]
+        parts = [torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for _ in range(shards.size)]
+        dist.all_gather(parts, t.contiguous(), group=shards.group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.width, ctx.width), None, None
+
+
+def whole(module: nn.Module, name: str) -> Optional[torch.Tensor]:
+    """``module.<name>``, gathered over the model group where tensor
+    parallelism sharded it, else the tensor itself (module docstring)."""
+    t = getattr(module, name)
+    shards = getattr(module, "tp_shards", None)
+    if t is None or shards is None or name not in shards.dims:
+        return t
+    return _GatherShard.apply(t, shards.dims[name], shards)
 
 
 def _update_running_stats(module: nn.Module, x: torch.Tensor, mean: torch.Tensor,
@@ -70,10 +130,16 @@ def _update_running_stats(module: nn.Module, x: torch.Tensor, mean: torch.Tensor
     """``running = (1 - momentum) * running + momentum * batch``, with the
     unbiased batch variance in the running var (segtpu layers.py:116-120);
     nothing while :func:`remat` recomputes a block. Under a process group
-    the batch is the global one (each rank holds an equal shard)."""
+    the batch is the global one (each rank holds an equal shard). The count
+    is per true channel: ``4 n`` for an s2d input."""
     if getattr(_recompute, "on", False):
         return
-    count = x.numel() // x.shape[1] * group_size(module.process_group)
+    count = x.numel() // mean.numel() * group_size(module.process_group)
+    if mean.numel() != module.running_mean.numel():
+        # a sharded layer's whole statistics (s2d form): this rank's part
+        shards = module.tp_shards
+        width = module.running_mean.numel()
+        mean, var = (v.narrow(0, shards.rank * width, width) for v in (mean, var))
     m = module.momentum
     with torch.no_grad():
         module.running_mean.mul_(1 - m).add_(mean, alpha=m)
@@ -87,15 +153,49 @@ def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator
         t.uniform_(-bound, bound, generator=generator)
 
 
+def _stat_parts(features: int, stat_groups: int, stat_parts):
+    if stat_parts is not None:
+        parts = tuple(int(p) for p in stat_parts)
+        if sum(parts) != features:
+            raise ValueError(f"stat_parts {parts} do not sum to {features} features")
+        return parts
+    if stat_groups not in (1, 4):
+        raise ValueError(f"stat_groups is 1 or 4 (s2d), got {stat_groups}")
+    return (features,) if stat_groups == 4 else None
+
+
+def _check_parts(module: nn.Module, x: torch.Tensor, parts) -> None:
+    # the layer's own channels: a tensor-parallel shard holds 1/N of them,
+    # except in s2d form, where the layer is whole (module docstring)
+    want = module.weight.shape[0] if parts is None else 4 * module.features
+    if x.shape[1] != want:
+        raise ValueError(f"{type(module).__name__}({module.features}) with parts {parts} takes "
+                         f"{want} channels, got {x.shape[1]}")
+
+
+def _norm_tensors(module: nn.Module, parts, *names: str):
+    """A normalisation layer's tensors: whole in s2d form (``parts``; module
+    docstring), its own otherwise."""
+    return tuple(getattr(module, n) if parts is None else whole(module, n) for n in names)
+
+
 class BatchNormTorch(nn.Module):
     """BatchNorm2d with torch running-stat semantics (segtpu
     ``BatchNormTorch``): batch statistics through :class:`~segtpu_torch.ops.abn.BNTrain`
-    in training mode, the running statistics in eval mode."""
+    in training mode, the running statistics in eval mode.
+
+    ``stat_groups=4``: the input is the s2d form of ``features`` channels;
+    ``stat_parts``: a block-wise concat of s2d tensors of these true channel
+    counts (their sum is ``features``). ``forward(x, parts)`` overrides
+    both for one call, ``parts=(features,)`` being ``stat_groups=4``.
+    Statistics combine over the sub-positions; the parameters and running
+    statistics keep their ``[features]`` shapes."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
-                 process_group=None):
+                 process_group=None, stat_groups: int = 1, stat_parts=None):
         super().__init__()
         self.features, self.eps, self.momentum = features, eps, momentum
+        self.stat_parts = _stat_parts(features, stat_groups, stat_parts)
         self.process_group = process_group
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -103,14 +203,17 @@ class BatchNormTorch(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, parts=None) -> torch.Tensor:
+        parts = self.stat_parts if parts is None else tuple(parts)
+        _check_parts(self, x, parts)
+        weight, bias = _norm_tensors(self, parts, "weight", "bias")
         if self.training:
-            y, mean, var = abn_ops.bn_train(x, self.weight, self.bias, self.eps,
-                                            self.process_group)
+            y, mean, var = abn_ops.bn_train(x, weight, bias, self.eps, self.process_group, parts)
             _update_running_stats(self, x, mean, var)
             return y
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                            self.bias, False, 0.0, self.eps)
+        mean, var = _norm_tensors(self, parts, "running_mean", "running_var")
+        e = lambda v: abn_ops._expand_parts(v, parts)  # noqa: E731
+        return F.batch_norm(x, e(mean), e(var), e(weight), e(bias), False, 0.0, self.eps)
 
 
 class ABN(BatchNormTorch):
@@ -124,47 +227,57 @@ class ABN(BatchNormTorch):
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
                  activation: str = abn_ops.ACT_LEAKY_RELU, slope: float = 0.01,
-                 process_group=None):
-        super().__init__(features, eps, momentum, process_group)
+                 process_group=None, stat_groups: int = 1):
+        super().__init__(features, eps, momentum, process_group, stat_groups)
         abn_ops._check_act(activation)
         self.activation, self.slope = activation, slope
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, parts=None) -> torch.Tensor:
         if self.training:
-            return abn_ops.act_forward(super().forward(x), self.activation, self.slope)
-        return abn_ops.fused_abn(
-            x, self.weight, self.bias, mean=self.running_mean, var=self.running_var,
-            training=False, eps=self.eps, activation=self.activation, slope=self.slope)
+            return abn_ops.act_forward(super().forward(x, parts), self.activation, self.slope)
+        parts = self.stat_parts if parts is None else tuple(parts)
+        _check_parts(self, x, parts)
+        weight, bias, mean, var = _norm_tensors(self, parts, "weight", "bias", "running_mean",
+                                                "running_var")
+        return abn_ops.fused_abn(x, weight, bias, mean=mean, var=var, training=False,
+                                 eps=self.eps, activation=self.activation, slope=self.slope,
+                                 parts=parts)
 
 
 class InPlaceABN(nn.Module):
     """Fused activated BN (segtpu ``InPlaceABN``; reference
     lib/modules/abn/bn.py:47-103). Eval mode: one pass of the B2 kernel on
     CUDA. Training mode: :class:`~segtpu_torch.ops.abn.FusedABNTrain` (B1,
-    B2; backward B3 from the saved output, never the input)."""
+    B2; backward B3 from the saved output, never the input). ``stat_groups``
+    and ``forward(x, parts)``: s2d input, as :class:`BatchNormTorch`'s."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
                  activation: str = abn_ops.ACT_LEAKY_RELU, slope: float = 0.01,
-                 process_group=None):
+                 process_group=None, stat_groups: int = 1):
         super().__init__()
         self.features, self.eps, self.momentum = features, eps, momentum
         self.activation, self.slope = activation, slope
+        self.stat_parts = _stat_parts(features, stat_groups, None)
         self.process_group = process_group
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, parts=None) -> torch.Tensor:
+        parts = self.stat_parts if parts is None else tuple(parts)
+        _check_parts(self, x, parts)
+        weight, bias = _norm_tensors(self, parts, "weight", "bias")
         if self.training:
             z, mean, var = abn_ops.fused_abn(
-                x, self.weight, self.bias, training=True, eps=self.eps,
-                activation=self.activation, slope=self.slope, group=self.process_group)
+                x, weight, bias, training=True, eps=self.eps, activation=self.activation,
+                slope=self.slope, group=self.process_group, parts=parts)
             _update_running_stats(self, x, mean, var)
             return z
-        return abn_ops.fused_abn(
-            x, self.weight, self.bias, mean=self.running_mean, var=self.running_var,
-            training=False, eps=self.eps, activation=self.activation, slope=self.slope)
+        mean, var = _norm_tensors(self, parts, "running_mean", "running_var")
+        return abn_ops.fused_abn(x, weight, bias, mean=mean, var=var, training=False,
+                                 eps=self.eps, activation=self.activation, slope=self.slope,
+                                 parts=parts)
 
 
 _Size = Union[int, Tuple[int, int]]
@@ -210,6 +323,36 @@ class ConvTranspose2dTorch(nn.ConvTranspose2d):
         _uniform_(self.weight, bound, generator)
         if self.bias is not None:
             _uniform_(self.bias, bound, generator)
+
+
+def s2d_conv(conv: nn.Conv2d, x: torch.Tensor, in_perm=None, in_parts=None) -> torch.Tensor:
+    """``conv`` (stride 1, odd square kernel, no groups) as a SAME conv of
+    the s2d tensor ``x``, giving the s2d form of its output (segtpu
+    ``S2DConv``): the dense weight expanded by
+    :func:`~segtpu_torch.ops.s2d.s2d_kernel`, or by
+    :func:`~segtpu_torch.ops.s2d.expand_kernel_parts` for ``in_parts``; its
+    input channels reordered by ``in_perm`` for a block-wise concat input.
+    The conv's own padding does not apply: a 3x3 conv with padding 0 is run
+    as SAME (LinkNet34's head crops the rows that differ)."""
+    weight, bias = whole(conv, "weight"), whole(conv, "bias")
+    if in_parts is not None:
+        kp = s2d_ops.expand_kernel_parts(weight, in_parts)
+    else:
+        kp = s2d_ops.s2d_kernel(weight)
+    if in_perm is not None:
+        kp = kp[:, torch.as_tensor(in_perm, device=kp.device)]
+    bias = None if bias is None else bias.repeat(4)
+    return F.conv2d(x, kp, bias, padding=kp.shape[2] // 2)
+
+
+def deconv_s2d(deconv: nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
+    """``deconv`` (kernel 4, stride 2, padding 1) applied so that its output
+    comes out in s2d form at the input's resolution (segtpu ``DeconvS2D``):
+    one stride-1 3x3 conv with the weight of
+    :func:`~segtpu_torch.ops.s2d.deconv_s2d_kernel`."""
+    weight, bias = whole(deconv, "weight"), whole(deconv, "bias")
+    bias = None if bias is None else bias.repeat(4)
+    return F.conv2d(x, s2d_ops.deconv_s2d_kernel(weight), bias, padding=1)
 
 
 def max_pool(x: torch.Tensor) -> torch.Tensor:
@@ -273,35 +416,39 @@ def float_logits(out: torch.Tensor) -> torch.Tensor:
 
 
 def _global_batch_draw(x: torch.Tensor, p: float, shard: Tuple[int, int],
-                       feature: bool) -> torch.Tensor:
+                       feature: bool, groups: int = 1) -> torch.Tensor:
     """This rank's rows of a Bernoulli(1 - p) draw, in ``x``'s dtype, of the
-    global batch: shape ``(N * size, C, 1, 1)`` (feature dropout) or
-    ``(N * size,) + x.shape[1:]``, cut to the rows of ``shard = (data rank,
-    data size)``, on the generator of ``x``'s device."""
+    global batch: shape ``(N * size, C // groups, 1, 1)`` (feature dropout)
+    or ``(N * size,) + x.shape[1:]``, cut to the rows of ``shard = (data
+    rank, data size)``, on the generator of ``x``'s device."""
     rank, size = shard
     n = x.shape[0]
-    shape = (n * size,) + ((x.shape[1],) + (1,) * (x.dim() - 2) if feature else x.shape[1:])
+    shape = (n * size,) + ((x.shape[1] // groups,) + (1,) * (x.dim() - 2) if feature
+                           else x.shape[1:])
     noise = torch.empty(shape, dtype=x.dtype, device=x.device)
     noise.bernoulli_(1 - p)
     return noise[rank * n:(rank + 1) * n]
 
 
 class Dropout2d(nn.Dropout2d):
-    """segtpu's channel ``Dropout2d`` with ``groups=1``: one Bernoulli draw per
-    (sample, channel), kept values scaled by 1 / (1 - p), identity in eval
-    mode or at p = 0. The draw is that of the global batch
-    (:func:`set_data_shard`). ``groups > 1`` belongs to s2d execution, which
-    is not ported."""
+    """segtpu's channel ``Dropout2d``: one Bernoulli draw per (sample,
+    channel), kept values scaled by 1 / (1 - p), identity in eval mode or at
+    p = 0. The draw is that of the global batch (:func:`set_data_shard`).
+    ``forward(x, groups=4)`` (an s2d input, sub-position-major): one draw per
+    true channel, the same draw that ``groups=1`` makes from the same
+    generator state, repeated over the 4 sub-positions, so the s2d and the
+    normal-space forms of a model drop the same channels."""
 
     data_shard: Tuple[int, int] = (0, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         # torch's own feature dropout for one rank, bit for bit: the noise
         # is scaled in x's dtype
-        noise = _global_batch_draw(x, self.p, self.data_shard, feature=True)
-        return x * noise.div_(1 - self.p)
+        noise = _global_batch_draw(x, self.p, self.data_shard, feature=True, groups=groups)
+        noise = noise.div_(1 - self.p)
+        return x * (noise if groups == 1 else noise.repeat(1, groups, 1, 1))
 
 
 class Dropout(nn.Dropout):

@@ -17,6 +17,11 @@ and the 36 BatchNorms of the encoder take their batch statistics from B1,
 the BatchNorm backward runs B1 and the InPlaceABN backward B3.
 ``finaldrop1`` is ``layers.Dropout2d(0.5)`` (torch's channel dropout,
 training mode only).
+
+``s2d`` (LinkNet34 only, as segtpu's; segtpu linknet.py:68-117): where the
+head's transposed conv gives odd H and W (513 at patch 512), the VALID 3x3
+``finalconv2`` runs as a SAME conv in s2d form over the input padded to
+even size, and the rows and columns that touch the padding are cut off.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ from torch import nn
 
 from segtpu_torch.models.encoders.resnet import resnet34
 from segtpu_torch.models.layers import (BatchNormTorch, Conv, ConvTranspose2dTorch, Dropout2d,
-                                        InPlaceABN, float_logits)
+                                        InPlaceABN, float_logits, s2d_conv)
+from segtpu_torch.ops.s2d import d2s, s2d
 
 
 class DecoderBlockLinkNet(nn.Module):
@@ -65,13 +71,17 @@ class DecoderBlockLinkNet(nn.Module):
 class LinkNet34(nn.Module):
     """reference lib/models/linknet.py:33-90; logits in fp32 (float64 for a
     float64 model, a CPU reference run). ``plain_bn`` and ``dilated`` as
-    segtpu's LinkNet34: DilatedLinkNet34 sets both."""
+    segtpu's LinkNet34: DilatedLinkNet34 sets both, and has no ``s2d``
+    attribute, as segtpu's DilatedLinkNet34 has no s2d mode."""
 
     def __init__(self, num_classes: int = 1, num_channels: int = 3, plain_bn: bool = False,
                  dilated: bool = False, s2d: bool = False):
         super().__init__()
-        if s2d:
-            raise NotImplementedError("LinkNet34 s2d execution is not yet ported")
+        if dilated:
+            if s2d:
+                raise ValueError("the dilated LinkNet34 has no s2d mode")
+        else:
+            self.s2d = s2d
         self.dilated = dilated
         filters = (64, 128, 256, 512)
         enc = resnet34(dilated=dilated, num_channels=num_channels)
@@ -113,7 +123,13 @@ class LinkNet34(nn.Module):
             f = F.relu(self.finalconv2(f))
         else:
             f = F.leaky_relu(self.finaldeconv1(self.finaldrop1(d1)), 0.01)
-            f = F.leaky_relu(self.finalconv2(f), 0.01)
+            h, w = f.shape[2:]
+            if self.s2d and h % 2 == 1 and w % 2 == 1:
+                g = d2s(s2d_conv(self.finalconv2, s2d(F.pad(f, (0, 1, 0, 1)))))
+                f = g[:, :, 1:h - 1, 1:w - 1]
+            else:
+                f = self.finalconv2(f)
+            f = F.leaky_relu(f, 0.01)
         return float_logits(self.finalconv3(f))
 
 

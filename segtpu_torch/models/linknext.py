@@ -15,6 +15,11 @@ Keys are the reference's: ``encoder0.{0,1}`` (stem conv, BatchNorm),
 ``decoder{i}.{conv1,norm1,deconv2,norm2,conv3,norm3}``, ``finaldeconv1``,
 ``finalconv2``, ``finalconv3``. In training mode the 45 BatchNorms run B1
 and B2.
+
+``s2d`` (segtpu linknext.py:71-90, :170-178): with even H and W, the
+64-channel stem conv and its BatchNorm (grouped statistics) run in
+space-to-depth form and the 3x3 stride-2 pool exits to normal space
+(:func:`~segtpu_torch.ops.s2d.s2d_max_pool3_exit`).
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from segtpu_torch.models.layers import (BatchNormTorch, Conv, ConvTranspose2dTorch, Dropout2d,
-                                        float_logits)
+                                        float_logits, s2d_conv)
+from segtpu_torch.ops.s2d import s2d, s2d_max_pool3_exit
 
 
 class _BasicPath(nn.Module):
@@ -66,18 +72,28 @@ class BasicBlockC(nn.Module):
         return F.relu(self.bn0(self.basic(x) + sc), inplace=True)
 
 
+def _stem(encoder0: nn.Sequential, x: torch.Tensor, use_s2d: bool) -> torch.Tensor:
+    """The stem ``encoder0`` (conv, BatchNorm, ReLU, 3/2/1 max-pool), in s2d
+    form up to its pool where ``use_s2d`` and H and W are even."""
+    if not (use_s2d and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0):
+        return encoder0(x)
+    conv, bn = encoder0[0], encoder0[1]
+    y = F.relu(bn(s2d_conv(conv, s2d(x)), (bn.features,)), inplace=True)
+    return s2d_max_pool3_exit(y)
+
+
 class ResNeXtEncoder(nn.Module):
     """ResNeXt encoder (reference linknext.py:121-158): conv3x3 stem with
     BatchNorm, ReLU and the 3/2/1 max-pool as ``encoder0``, then four layers
     ``encoder1..4`` of BasicBlockC, the bottleneck width doubling per layer;
-    ``forward`` returns the four layers' outputs."""
+    ``forward`` returns the four layers' outputs. ``s2d``: the stem in s2d
+    form (module docstring)."""
 
     def __init__(self, num_blocks: Sequence[int] = (2, 2, 2, 2), cardinality: int = 2,
                  bottleneck_width: int = 64, expansion: int = 2, num_channels: int = 3,
                  s2d: bool = False):
         super().__init__()
-        if s2d:
-            raise NotImplementedError("ResNeXtEncoder s2d execution is not yet ported")
+        self.s2d = s2d
         self.encoder0 = nn.Sequential(Conv(num_channels, 64, 3, padding=1), BatchNormTorch(64),
                                       nn.ReLU(inplace=True),
                                       nn.MaxPool2d(3, stride=2, padding=1))
@@ -94,7 +110,7 @@ class ResNeXtEncoder(nn.Module):
             bw *= 2
 
     def forward(self, x: torch.Tensor):
-        e1 = self.encoder1(self.encoder0(x))
+        e1 = self.encoder1(_stem(self.encoder0, x, self.s2d))
         e2 = self.encoder2(e1)
         e3 = self.encoder3(e2)
         return e1, e2, e3, self.encoder4(e3)
@@ -156,11 +172,12 @@ class LinkNextDecoderBlock(nn.Module):
 class LinkNext(nn.Module):
     """reference lib/models/linknext.py:227-278; logits in fp32 (float64 for
     a float64 model). The encoder's modules sit at the top level, as the
-    reference's ``encoder0..4``."""
+    reference's ``encoder0..4``. ``s2d``: the encoder's stem in s2d form."""
 
     def __init__(self, num_classes: int = 1, num_channels: int = 3, s2d: bool = False):
         super().__init__()
-        enc = resnext26_2x64d(num_channels=num_channels, s2d=s2d)
+        self.s2d = s2d
+        enc = resnext26_2x64d(num_channels=num_channels)
         for i in range(5):
             setattr(self, f"encoder{i}", getattr(enc, f"encoder{i}"))
         f = enc.widths
@@ -173,7 +190,7 @@ class LinkNext(nn.Module):
         self.finalconv3 = Conv(32, num_classes, 2, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        e1 = self.encoder1(self.encoder0(x))
+        e1 = self.encoder1(_stem(self.encoder0, x, self.s2d))
         e2 = self.encoder2(e1)
         e3 = self.encoder3(e2)
         e4 = self.encoder4(e3)

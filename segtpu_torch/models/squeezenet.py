@@ -2,6 +2,11 @@
 reference lib/models/squeezenet.py:68-151): Fire and DFire squeeze-expand
 modules with ELU, additive skips, nearest upsampling. It has no
 normalisation layer, so it runs no kernel of this repo.
+
+``s2d`` (segtpu squeezenet.py:62-115): with even H and W, the 96-channel
+stem conv runs in space-to-depth form and its skip stays s2d; the head adds
+``d2``'s nearest upsampling as a channel tile in s2d form and its 1x1 conv
+converts once at the end.
 """
 
 from __future__ import annotations
@@ -10,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from segtpu_torch.models.layers import Conv, float_logits, max_pool, upsample_nearest
+from segtpu_torch.models.layers import Conv, float_logits, max_pool, s2d_conv, upsample_nearest
+from segtpu_torch.ops.s2d import d2s, s2d, s2d_max_pool_exit, s2d_tile_channels
 
 
 class Fire(nn.Module):
@@ -56,8 +62,7 @@ class SqueezeNet(nn.Module):
 
     def __init__(self, in_channels: int = 3, num_classes: int = 1, s2d: bool = False):
         super().__init__()
-        if s2d:
-            raise NotImplementedError("SqueezeNet s2d execution is not yet ported")
+        self.s2d = s2d
         self.conv1 = Conv(in_channels, 96, 3, padding=1)
         width = 96
         for i, (sq, e1, e3) in _FIRES.items():
@@ -72,11 +77,19 @@ class SqueezeNet(nn.Module):
         self.dconv1 = Conv(width, num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv1 = self.conv1(x)
-        fire4 = self.fire4(self.fire3(self.fire2(max_pool(conv1))))
+        use_s2d = self.s2d and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
+        if use_s2d:
+            conv1s = s2d_conv(self.conv1, s2d(x))
+            pool1 = s2d_max_pool_exit(conv1s)
+        else:
+            conv1 = self.conv1(x)
+            pool1 = max_pool(conv1)
+        fire4 = self.fire4(self.fire3(self.fire2(pool1)))
         fire8 = self.fire8(self.fire7(self.fire6(self.fire5(max_pool(fire4)))))
         center = self.dconv10(self.conv10(self.fire9(max_pool(fire8))))
         d9 = upsample_nearest(self.dfire9(center))
         d5 = self.dfire5(self.dfire6(self.dfire7(self.dfire8(d9 + fire8))))
         d2 = self.dfire2(self.dfire3(self.dfire4(upsample_nearest(d5) + fire4)))
+        if use_s2d:
+            return float_logits(d2s(s2d_conv(self.dconv1, conv1s + s2d_tile_channels(d2))))
         return float_logits(self.dconv1(upsample_nearest(d2) + conv1))

@@ -46,15 +46,27 @@ pair) or ``[sum dy | sum xhat*dy]`` (B3) in the backward. The statistics and
 the ``dx`` pass use the global sums; the weight and bias gradients stay the
 local shard's, which the gradient all-reduce of the data-parallel step
 adds.
+
+Grouped statistics (s2d execution, segtpu/ops/abn.py:169-260, :330-470):
+with ``parts`` the input's channels are the s2d form of ``sum(parts)`` true
+channels, a block-wise concat in which part p spans ``4 * parts[p]``
+channels, sub-position-major (:mod:`segtpu_torch.ops.s2d`). B1 and B3 reduce
+over all of these channels; the ``[4F]`` fp32 partials are then combined per
+true channel (``_combine_parts``, ``_sum_parts``; after the all-reduce under
+a process group), the normalisation group of a channel counts ``4 n``
+values, and B2 applies the per-channel scale and shift expanded to the s2d
+channels (``_expand_parts``). Weight, bias, their gradients and the
+statistics that come back keep their dense ``[F]`` shapes.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from segtpu_torch.ops import kernels
+from segtpu_torch.ops.s2d import blocked_perm
 from segtpu_torch.parallel import all_reduce_
 
 ACT_LEAKY_RELU = "leaky_relu"
@@ -153,13 +165,78 @@ def batch_mean_var(x: torch.Tensor, group=None):
     """Per-channel biased batch mean and variance in fp32 over every
     non-channel dim, from one B1 pass (segtpu ``batch_mean_var``); over the
     ranks of ``group`` (sync BatchNorm) when one is given."""
+    mean, var, _ = _batch_stats(x, group, None)
+    return mean, var
+
+
+def _batch_stats(x: torch.Tensor, group, parts):
+    """Dense batch ``(mean, biased var, count per normalisation group)``
+    from one B1 pass; with ``parts`` the s2d sub-channels' moments combined
+    per true channel after the all-reduce."""
     s, q = channel_sums(x)
     count = x.numel() // x.shape[1]
     if group is not None:
         s, q, n = _global_sums(group, s, q, s.new_full((1,), count))
         count = n
+    if parts is not None:
+        mean, var = _combine_parts(s / count, q / count, parts)
+        return mean, var, count * 4
     mean = s / count
-    return mean, q / count - mean * mean
+    return mean, q / count - mean * mean, count
+
+
+# ---------------------------------------------------------------------------
+# Grouped (s2d) statistics
+# ---------------------------------------------------------------------------
+
+_perms: Dict[Tuple[Tuple[int, ...], torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _perm(parts: Tuple[int, ...], device: torch.device):
+    """``(perm, inverse)`` index tensors on ``device`` between the block-wise
+    layout of ``parts`` and the canonical ``(d, c)`` order of the dense
+    channels; None for one part, whose layout is the canonical one."""
+    if len(parts) == 1:
+        return None
+    key = (tuple(parts), device)
+    if key not in _perms:
+        perm = torch.tensor(blocked_perm(tuple(parts)), dtype=torch.long)
+        _perms[key] = (perm.to(device), torch.argsort(perm).to(device))
+    return _perms[key]
+
+
+def _canonical(v: torch.Tensor, parts) -> torch.Tensor:
+    """A ``[4F]`` vector of the block-wise layout as ``[4, F]``, sub-position
+    major."""
+    p = _perm(parts, v.device)
+    return (v if p is None else v[p[1]]).view(4, -1)
+
+
+def _sum_parts(v: torch.Tensor, parts) -> torch.Tensor:
+    """``[4F] -> [F]``: the sum over each true channel's sub-positions."""
+    return _canonical(v, parts).sum(0)
+
+
+def _combine_parts(sub_mean: torch.Tensor, sub_msq: torch.Tensor, parts):
+    """Per-sub-channel mean and mean square ``[4F]`` -> dense ``(mean,
+    var)`` ``[F]`` (exact: the sub-positions hold equal counts)."""
+    m, q = _canonical(sub_mean, parts), _canonical(sub_msq, parts)
+    mean = m.mean(0)
+    return mean, q.mean(0) - mean * mean
+
+
+def _expand_parts(v: torch.Tensor, parts) -> torch.Tensor:
+    """Dense ``[F]`` -> the block-wise s2d layout ``[4F]``; ``v`` itself
+    without parts."""
+    if parts is None:
+        return v
+    tiled = v.repeat(4)
+    p = _perm(parts, v.device)
+    return tiled if p is None else tiled[p[0]]
+
+
+def _sum_to_dense(v: torch.Tensor, parts) -> torch.Tensor:
+    return v if parts is None else _sum_parts(v, parts)
 
 
 # ---------------------------------------------------------------------------
@@ -213,12 +290,15 @@ def abn_bwd_sums(z: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor, beta: to
 # ---------------------------------------------------------------------------
 
 def _dense(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself when it is contiguous or channels_last, else a contiguous
-    copy, counted in ``_dense.copies`` (a layout that the training path
-    should never hand over)."""
+    """``x`` itself when it is contiguous or channels_last, else a dense
+    copy, counted in ``_dense.copies``: channels_last where the channels
+    are x's innermost dim (a packed dense block's prefix), so the layers
+    after keep the layout; else contiguous."""
     if x.is_contiguous() or (x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last)):
         return x
     _dense.copies += 1
+    if x.dim() == 4 and x.stride(1) == 1:
+        return x.contiguous(memory_format=torch.channels_last)
     return x.contiguous()
 
 
@@ -242,40 +322,50 @@ class BNTrain(torch.autograd.Function):
     gradient. Forward: B1, then B2 with ``scale = gamma * rstd`` and
     ``shift = beta - mean * scale``. Backward (segtpu abn.py:250-289):
     ``(sum g, sum g*x)`` from B1's pair form, then
-    ``dx = w*g - w*d_beta/N - w*rstd*(x - mean)*d_gamma/N`` elementwise."""
+    ``dx = w*g - w*d_beta/N - w*rstd*(x - mean)*d_gamma/N`` elementwise.
+    ``parts``: grouped s2d statistics (module docstring); the pair sums are
+    summed per true channel and N counts the group."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps: float, group=None):
+    def forward(ctx, x, weight, bias, eps: float, group=None, parts=None):
         x = _dense(x)
-        mean, var = batch_mean_var(x, group)
+        mean, var, _ = _batch_stats(x, group, parts)
         rstd = torch.rsqrt(var + eps)
         scale = weight.to(rstd.dtype) * rstd
         shift = bias.to(rstd.dtype) - mean * scale
-        y = abn_norm_act(x, scale, shift, ACT_NONE, 0.0)
+        y = abn_norm_act(x, _expand_parts(scale, parts), _expand_parts(shift, parts),
+                         ACT_NONE, 0.0)
         ctx.save_for_backward(x, weight, mean, rstd)
-        ctx.group = group
+        ctx.group, ctx.parts = group, parts
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, g, _g_mean, _g_var):
         x, weight, mean, rstd = ctx.saved_tensors
+        parts = ctx.parts
         count = x.numel() // x.shape[1]
         g = _like(g, x)
-        d_bias, sgx = channel_sums(g, x)
+        sub_bias, sub_sgx = channel_sums(g, x)
+        d_bias, sgx = _sum_to_dense(sub_bias, parts), _sum_to_dense(sub_sgx, parts)
         d_weight = (sgx - mean * d_bias) * rstd
         w = weight.to(rstd.dtype) * rstd
         all_bias, all_weight = d_bias, d_weight
         if ctx.group is not None:
-            all_bias, all_sgx, n = _global_sums(ctx.group, d_bias, sgx,
-                                                d_bias.new_full((1,), count))
+            all_bias, all_sgx, n = _global_sums(ctx.group, sub_bias, sub_sgx,
+                                                sub_bias.new_full((1,), count))
+            all_bias, all_sgx = _sum_to_dense(all_bias, parts), _sum_to_dense(all_sgx, parts)
             all_weight, count = (all_sgx - mean * all_bias) * rstd, n
-        a = w * all_bias / count
-        b2 = w * rstd * all_weight / count
+        if parts is not None:
+            count = count * 4
+        a = _expand_parts(w * all_bias / count, parts)
+        b2 = _expand_parts(w * rstd * all_weight / count, parts)
         view, acc = _channel_view(x), rstd.dtype
-        dx = (g.to(acc) * w.view(view) - (x.to(acc) - mean.view(view)) * b2.view(view)
+        dx = (g.to(acc) * _expand_parts(w, parts).view(view)
+              - (x.to(acc) - _expand_parts(mean, parts).view(view)) * b2.view(view)
               - a.view(view))
-        return dx.to(x.dtype), d_weight.to(weight.dtype), d_bias.to(weight.dtype), None, None
+        return (dx.to(x.dtype), d_weight.to(weight.dtype), d_bias.to(weight.dtype), None, None,
+                None)
 
 
 class FusedABNTrain(torch.autograd.Function):
@@ -285,64 +375,85 @@ class FusedABNTrain(torch.autograd.Function):
     ``(z, gamma, beta, var)`` and never ``x``. Backward: B3 gives
     ``edz = sum dy`` and ``eydz = sum xhat*dy``; then
     ``dx = (dy - edz/N - xhat*eydz/N) * gamma * rstd`` with ``dy`` and
-    ``xhat`` rebuilt from ``z``; ``d_gamma = eydz``, ``d_beta = edz``."""
+    ``xhat`` rebuilt from ``z``; ``d_gamma = eydz``, ``d_beta = edz``.
+    ``parts``: grouped s2d statistics; B3 takes gamma and beta expanded to
+    the s2d channels, and its sums are summed per true channel over the
+    group's 4N values."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps: float, activation: str, slope: float, group=None):
+    def forward(ctx, x, gamma, beta, eps: float, activation: str, slope: float, group=None,
+                parts=None):
         x = _dense(x)
-        mean, var = batch_mean_var(x, group)
+        mean, var, _ = _batch_stats(x, group, parts)
         scale = gamma.to(var.dtype) * torch.rsqrt(var + eps)
         shift = beta.to(var.dtype) - mean * scale
-        z = abn_norm_act(x, scale, shift, activation, slope)
+        z = abn_norm_act(x, _expand_parts(scale, parts), _expand_parts(shift, parts),
+                         activation, slope)
         ctx.save_for_backward(z, gamma, beta, var)
         ctx.eps, ctx.activation, ctx.slope, ctx.group = eps, activation, slope, group
+        ctx.parts = parts
         ctx.mark_non_differentiable(mean, var)
         return z, mean, var
 
     @staticmethod
     def backward(ctx, g, _g_mean, _g_var):
         z, gamma, beta, var = ctx.saved_tensors
-        act, slope = ctx.activation, ctx.slope
+        act, slope, parts = ctx.activation, ctx.slope, ctx.parts
         count = z.numel() // z.shape[1]
         g = _like(g, z)
         acc, view = var.dtype, _channel_view(z)
-        gamma_a, beta_a = gamma.to(acc).contiguous(), beta.to(acc).contiguous()
+        gamma_a = _expand_parts(gamma.to(acc), parts).contiguous()
+        beta_a = _expand_parts(beta.to(acc), parts).contiguous()
         edz, eydz = abn_bwd_sums(z, g, gamma_a, beta_a, act, slope)
         all_edz, all_eydz = edz, eydz
         if ctx.group is not None:
             all_edz, all_eydz, count = _global_sums(ctx.group, edz, eydz,
                                                     edz.new_full((1,), count))
+        if parts is None:
+            edz_mean, eydz_mean = all_edz / count, all_eydz / count
+        else:
+            edz_mean = _expand_parts(_sum_parts(all_edz, parts) / (count * 4), parts)
+            eydz_mean = _expand_parts(_sum_parts(all_eydz, parts) / (count * 4), parts)
         zf = z.to(acc)
         dy = g.to(acc) * act_grad_from_output(zf, act, slope)
         xhat = (act_invert(zf, act, slope) - beta_a.view(view)) / gamma_a.view(view)
-        w = gamma_a * torch.rsqrt(var + ctx.eps)
-        dx = (dy - (all_edz / count).view(view) - xhat * (all_eydz / count).view(view)) \
-            * w.view(view)
-        return (dx.to(z.dtype), eydz.to(gamma.dtype), edz.to(beta.dtype), None, None, None, None)
+        w = _expand_parts(gamma.to(acc) * torch.rsqrt(var + ctx.eps), parts)
+        dx = (dy - edz_mean.view(view) - xhat * eydz_mean.view(view)) * w.view(view)
+        return (dx.to(z.dtype), _sum_to_dense(eydz, parts).to(gamma.dtype),
+                _sum_to_dense(edz, parts).to(beta.dtype), None, None, None, None, None)
 
 
 def bn_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
-             group=None):
+             group=None, parts: Optional[Tuple[int, ...]] = None):
     """Training-mode BatchNorm: ``(y, batch mean, batch biased var)``; the
-    batch is the global one of ``group``'s ranks when a group is given."""
-    return BNTrain.apply(x, weight, bias, eps, group)
+    batch is the global one of ``group``'s ranks when a group is given;
+    ``parts``: grouped s2d statistics (module docstring)."""
+    return BNTrain.apply(x, weight, bias, eps, group, _parts(parts))
+
+
+def _parts(parts) -> Optional[Tuple[int, ...]]:
+    return None if parts is None else tuple(int(p) for p in parts)
 
 
 def fused_abn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
               mean: Optional[torch.Tensor] = None, var: Optional[torch.Tensor] = None,
               training: bool = False, eps: float = 1e-5, activation: str = ACT_LEAKY_RELU,
-              slope: float = 0.01, group=None):
+              slope: float = 0.01, group=None, parts: Optional[Tuple[int, ...]] = None):
     """Fused BN + activation (segtpu ``fused_abn``).
 
     ``training=True``: batch statistics (over ``group``'s ranks when one is
     given) and the from-output backward; returns ``(z, mean, var)`` so the
     caller can update its running statistics.
-    ``training=False``: the running ``mean``/``var``; returns ``z``."""
+    ``training=False``: the running ``mean``/``var``; returns ``z``.
+    ``parts``: grouped s2d statistics (module docstring); gamma, beta and the
+    running statistics keep their dense shapes."""
+    parts = _parts(parts)
     if training:
-        return FusedABNTrain.apply(x, gamma, beta, eps, activation, slope, group)
+        return FusedABNTrain.apply(x, gamma, beta, eps, activation, slope, group, parts)
     if mean is None or var is None:
         raise ValueError("fused_abn(training=False) needs the running mean and var")
     acc = _acc(x)
     scale = gamma.to(acc) * torch.rsqrt(var.to(acc) + eps)
     shift = beta.to(acc) - mean.to(acc) * scale
-    return abn_norm_act(x, scale, shift, activation, slope)
+    return abn_norm_act(x, _expand_parts(scale, parts), _expand_parts(shift, parts), activation,
+                        slope)

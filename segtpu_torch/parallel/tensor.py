@@ -21,7 +21,11 @@ group hold the same data and compute the same activations, and:
     output the same way; B1/B2/B3 then run on the rank's channels;
   * every other layer stays replicated (grouped convs and linear layers too,
     whose kernels and biases segtpu also shards; LinkNet34, the model of the
-    parallel paths, has neither).
+    parallel paths, has neither);
+  * a sharded module that a model evaluates in s2d form (``--s2d``) uses
+    its whole tensors there, gathered with autograd, and computes on every
+    rank of the group (``segtpu_torch.models.layers.whole``); its hooks
+    leave an s2d call alone.
 
 The autograd rules make each rank's gradients those of the one-process
 step: the gather's backward keeps the rank's channels of the incoming
@@ -46,7 +50,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from segtpu_torch.models.layers import BatchNormTorch, InPlaceABN
+from segtpu_torch.models.layers import BatchNormTorch, InPlaceABN, Shards
 from segtpu_torch.parallel import Grid
 
 MIN_FEATURES = 64
@@ -136,10 +140,10 @@ def _cut(t: torch.Tensor, dim: int, rank: int, size: int) -> torch.Tensor:
 
 def _shard_tensors(module: nn.Module, prefix: str, names: Dict[str, int], grid: Grid,
                    sharded: Dict[str, int]) -> None:
-    for attr, dim in names.items():
+    dims = {attr: dim for attr, dim in names.items() if getattr(module, attr) is not None}
+    module.tp_shards = Shards(dims, grid.model_group, grid.model_rank, grid.model_size)
+    for attr, dim in dims.items():
         t = getattr(module, attr)
-        if t is None:
-            continue
         local = _cut(t.data, dim, grid.model_rank, grid.model_size)
         if isinstance(t, nn.Parameter):
             setattr(module, attr, nn.Parameter(local, requires_grad=t.requires_grad))
@@ -161,11 +165,17 @@ def shard_model(model: nn.Module, grid: Grid) -> Dict[str, int]:
     def copy_in(module, args):
         return (_CopyToModel.apply(args[0], group),) + tuple(args[1:])
 
-    def scatter_in(module, args):
-        return (_ScatterToModel.apply(args[0], group, grid.model_rank, tp),) + tuple(args[1:])
+    def scatter_in(module, args, kwargs):
+        if _s2d_call(module, args, kwargs):
+            return None
+        x = _ScatterToModel.apply(args[0], group, grid.model_rank, tp)
+        return (x,) + tuple(args[1:]), kwargs
 
     def gather_out(module, args, out):
         return _GatherFromModel.apply(out, group, grid.model_rank)
+
+    def gather_norm_out(module, args, kwargs, out):
+        return None if _s2d_call(module, args, kwargs) else gather_out(module, args, out)
 
     for name, m in model.named_modules():
         prefix = name + "." if name else ""
@@ -184,9 +194,16 @@ def shard_model(model: nn.Module, grid: Grid) -> Dict[str, int]:
         elif isinstance(m, (BatchNormTorch, InPlaceABN)) and _eligible(m.features, tp):
             _shard_tensors(m, prefix, {"weight": 0, "bias": 0, "running_mean": 0,
                                        "running_var": 0}, grid, sharded)
-            m.register_forward_pre_hook(scatter_in)
-            m.register_forward_hook(gather_out)
+            m.register_forward_pre_hook(scatter_in, with_kwargs=True)
+            m.register_forward_hook(gather_norm_out, with_kwargs=True)
     return sharded
+
+
+def _s2d_call(module: nn.Module, args, kwargs) -> bool:
+    """A normalisation layer called on an s2d input: it then works on whole
+    tensors (``layers.whole``) and its hooks leave input and output alone."""
+    parts = args[1] if len(args) > 1 else kwargs.get("parts")
+    return parts is not None or module.stat_parts is not None
 
 
 def _sharded_deconv_forward(m: nn.ConvTranspose2d, grid: Grid, cut_in: bool, cut_bias: bool):

@@ -69,14 +69,18 @@ NORM_LAYERS = {"linknet34": (36, 12), "unet": (18, 0), "unet_abn": (0, 18), "zf_
 
 
 def step_norm_shapes(batch: int = BATCH, patch: int = PATCH, device="cuda",
-                     model_name: str = "linknet34"):
+                     model_name: str = "linknet34", **attrs):
     """Input shapes of the BatchNorm and InPlaceABN layers of one training
     step of ``model_name`` (LinkNet34: 36 and 12), in layer order, recorded
-    by hooks on one forward pass: ``{"bn": [...], "abn": [...]}``."""
+    by hooks on one forward pass: ``{"bn": [...], "abn": [...]}``. ``attrs``
+    are set on the model first (``s2d=True``: the s2d form's inputs, 4C
+    channels at half resolution on its s2d level)."""
     from segtpu_torch.models import get_model
     from segtpu_torch.models.layers import BatchNormTorch, InPlaceABN
 
     model = get_model(model_name, patch_size=patch, device=device, seed=SEED)
+    for key, value in attrs.items():
+        setattr(model, key, value)
     shapes = {"bn": [], "abn": []}
 
     def hook(kind):

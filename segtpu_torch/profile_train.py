@@ -1,12 +1,13 @@
 """Where the device time of the port's training step goes, on one GPU.
 
-    python -m segtpu_torch.profile_train [--config zf_unet-512] [--out profile_train.json]
+    python -m segtpu_torch.profile_train [--config zf_unet-512] [--no-s2d] [--out profile_train.json]
 
 Runs the training step of a bench config (``segtpu_torch.bench``; default
 ``linknet34-bce_jaccard-adam-512``, the step of ``chip_smoke.py``'s train
 phase) as the bench does: random weights from a seed, its batch and patch,
-bf16 autocast, its loss and optimizer at lr 1e-3, its frozen encoder, one
-fixed DeviceShapes batch; 3 warm steps, then 3 steps under ``torch.profiler``. Prints one JSON
+bf16 autocast, its loss and optimizer at lr 1e-3, its frozen encoder, its
+form (s2d for ``zf_unet-512`` and ``unet11-finetune-512`` unless given
+``--no-s2d``), one fixed DeviceShapes batch; 3 warm steps, then 3 steps under ``torch.profiler``. Prints one JSON
 object: the wall milliseconds per step, the device-busy milliseconds per
 step (the union of all kernel intervals) and the idle share, the kernel
 launches per step, the peak memory, and the device time per step by kernel
@@ -66,10 +67,15 @@ def main(argv=None) -> int:
     parser.add_argument("--config", default="linknet34-bce_jaccard-adam-512",
                         choices=sorted(BENCH_CONFIGS))
     parser.add_argument("--out", default=None, help="also write the JSON here")
+    parser.add_argument("--no-s2d", action="store_true",
+                        help="run zf_unet-512 and unet11-finetune-512 in normal space")
     args = parser.parse_args(argv)
 
     cfg = BENCH_CONFIGS[args.config]
     model = get_model(cfg["model_name"], patch_size=cfg["patch"], device="cuda", seed=SEED)
+    s2d = cfg.get("s2d", False) and not args.no_s2d
+    if s2d:
+        model.s2d = True
     trainable = (without_encoder(cfg["model_name"], (n for n, _ in model.named_parameters()))
                  if cfg.get("freeze_encoder") else None)
     step = make_train_step(model, get_optimizer(cfg["optimizer"], model.parameters(), LR),
@@ -104,7 +110,8 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:20]
     result = {
-        "card": smi, "config": args.config, "batch": cfg["batch_size"], "patch": cfg["patch"],
+        "card": smi, "config": args.config, "form": "s2d" if s2d else "normal",
+        "batch": cfg["batch_size"], "patch": cfg["patch"],
         "steps": STEPS, "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "wall_ms_per_step": wall_ms / STEPS, "device_busy_ms_per_step": busy_ms,
         "idle_share_of_wall": 1.0 - busy_ms * STEPS / wall_ms,

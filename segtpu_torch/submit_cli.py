@@ -65,7 +65,9 @@ def build_arg_parser():
                              "launch (one rank: the one-process path)")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 model compute for inference")
-    parser.add_argument("--s2d", action="store_true", help="Space-to-depth mode (not yet ported)")
+    parser.add_argument("--s2d", action="store_true",
+                        help="Space-to-depth execution of the full-resolution level for models "
+                             "that have it (the same math; segtpu_torch.ops.s2d)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: cuda; pass cpu to run "
                              "on the CPU)")
@@ -92,9 +94,6 @@ def load_checkpoint(model, model_name: str, path: str):
 
 def main(argv=None):
     args = build_arg_parser().parse_args(argv)
-    if args.s2d:
-        raise SystemExit("--s2d is not yet ported to segtpu_torch: it waits for the s2d item "
-                         "of ROADMAP.md (space-to-depth execution, §A 4)")
     owns_group = not dist.is_initialized()
     distributed = args.tile_parallel and maybe_initialize_distributed(args.device)
     device = rank_device(args.device)
@@ -110,6 +109,10 @@ def main(argv=None):
     num_channels = 1 if args.grayscale else 3
     model = get_model(args.model, patch_size=args.patch_size,
                       num_channels=num_channels, device=device)
+    if args.s2d:
+        if not hasattr(model, "s2d"):
+            raise SystemExit(f"--s2d: model '{args.model}' has no s2d mode")
+        model.s2d = True
     if args.encoder_weights:
         install_encoder_weights(args.model, model, args.encoder_weights)
     meta = load_checkpoint(model, args.model, auto_file(args.checkpoint))

@@ -3,7 +3,12 @@ reference lib/tiles.py).
 
 ``ImageSlicer`` cuts a large image into overlapping tiles and merges tiled
 predictions back with weighted fusion. ``split``/``merge`` are the host
-NumPy paths (float64 accumulation, the reference's arithmetic);
+tile paths, as segtpu's (segtpu/tiles.py:112-180): ``split`` cuts with
+NumPy; :meth:`ImageSlicer.split_batch` and :meth:`ImageSlicer.merge` run
+the native tile I/O of :mod:`segtpu_torch.native` (one threaded C++ pass
+each, float64 accumulation, the reference's arithmetic), and fall back to
+``split`` and :meth:`ImageSlicer.merge_numpy`, their plain versions with
+the same bits, only where :func:`segtpu_torch.native.available` is False;
 :meth:`ImageSlicer.merge_device` merges a tile batch that lies on the device
 with ``F.fold``, which sums the weighted tiles of the regular crop grid in
 fp32 without leaving the device.
@@ -108,6 +113,23 @@ class ImageSlicer:
         return [np.ascontiguousarray(padded[y:y + th, x:x + tw])
                 for x, y, tw, th in self.crops]
 
+    def split_batch(self, image: np.ndarray) -> np.ndarray:
+        """All tiles as one ``(T, tile, tile, C)`` batch, cut by the native
+        extractor in one pass from the unpadded image (virtual reflect-101
+        borders, no padded copy); :meth:`split`'s tiles, stacked. uint8 or
+        float32; an HW image gives C = 1."""
+        from segtpu_torch import native
+
+        if image.shape[:2] != (self.image_height, self.image_width):
+            raise ValueError(f"image of shape {image.shape} does not match the slicer's "
+                             f"{(self.image_height, self.image_width)}")
+        if not native.available():
+            tiles = np.stack(self.split(image))
+            return tiles if tiles.ndim == 4 else tiles[..., None]
+        return native.extract_tiles(image, [c[0] for c in self.crops],
+                                    [c[1] for c in self.crops], self.tile_size,
+                                    self.margin_top, self.margin_left)
+
     def cut_patch(self, image: np.ndarray, slice_index: int) -> np.ndarray:
         """Tile ``crops[slice_index]`` of ``image`` alone, as :meth:`split`
         cuts it (reference cut_patch, tiles.py:119-135)."""
@@ -124,7 +146,22 @@ class ImageSlicer:
 
     def merge(self, tiles: Sequence[np.ndarray], dtype=np.float32) -> np.ndarray:
         """Weighted-fusion merge of HWC (or HW) tiles in float64 (reference
-        tiles.py:137-161)."""
+        tiles.py:137-161), through the native merge: the products and sums
+        of :meth:`merge_numpy` in the same order per pixel, so its bits."""
+        from segtpu_torch import native
+
+        if len(tiles) != len(self.crops):
+            raise ValueError(f"{len(tiles)} tiles for {len(self.crops)} crops")
+        if not native.available():
+            return self.merge_numpy(tiles, dtype)
+        stacked = np.asarray([t if t.ndim == 3 else t[..., None] for t in tiles], np.float32)
+        image, norm = native.merge_tiles(
+            stacked, [c[0] for c in self.crops], [c[1] for c in self.crops],
+            self.compute_weight(self.tile_size), *self.target_shape)
+        return self._normalise(image, norm, dtype)
+
+    def merge_numpy(self, tiles: Sequence[np.ndarray], dtype=np.float32) -> np.ndarray:
+        """:meth:`merge` in NumPy, its plain version."""
         if len(tiles) != len(self.crops):
             raise ValueError(f"{len(tiles)} tiles for {len(self.crops)} crops")
 
@@ -138,7 +175,9 @@ class ImageSlicer:
             t = tile if tile.ndim == 3 else tile[..., None]
             image[y:y + th, x:x + tw] += t * w3
             norm[y:y + th, x:x + tw] += w3
+        return self._normalise(image, norm, dtype)
 
+    def _normalise(self, image: np.ndarray, norm: np.ndarray, dtype) -> np.ndarray:
         norm = np.clip(norm, a_min=np.finfo(norm.dtype).eps, a_max=None)
         out = np.divide(image, norm).astype(dtype)
         return out[self.margin_top:self.image_height + self.margin_top,

@@ -58,14 +58,6 @@ from segtpu_torch.train.optim import cosine_annealing_lr, get_optimizer
 from segtpu_torch.train.state import make_eval_step, make_train_step
 from segtpu_torch.utils import count_parameters
 
-# segtpu flags whose feature is not ported yet: each exits and names its
-# ROADMAP.md item instead of being ignored.
-LATER_FLAGS = (
-    ("s2d", bool, "--s2d", "the s2d item of ROADMAP.md (space-to-depth execution, §A 4)"),
-    ("packed", bool, "--packed", "A18 of ROADMAP.md (tiramisu packed growth and remat_policy)"),
-)
-
-
 def build_arg_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("-g", "--grayscale", action="store_true",
@@ -99,12 +91,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--model-parallel", type=int, default=1,
                         help="Ranks per model group: conv channels are sharded over them "
                              "(run under torchrun with a multiple of it)")
-    parser.add_argument("--s2d", action="store_true", help="Space-to-depth mode (not yet ported)")
+    parser.add_argument("--s2d", action="store_true",
+                        help="Space-to-depth execution of the full-resolution level for models "
+                             "that have it (the same math; segtpu_torch.ops.s2d)")
     parser.add_argument("--remat", action="store_true",
                         help="Per-block rematerialization for models that have it (zf_unet, "
                              "tiramisu*)")
     parser.add_argument("--packed", action="store_true",
-                        help="Packed dense-block growth (not yet ported)")
+                        help="Packed dense-block growth for models that have it (tiramisu*): "
+                             "layers append to one buffer per block (the same math). With "
+                             "--s2d, the full-resolution s2d block keeps the concat")
     parser.add_argument("--light-logging", action="store_true",
                         help="Skip per-epoch image grids and weight histograms")
     parser.add_argument("--no-tensorboard", action="store_true")
@@ -205,9 +201,6 @@ def main(argv=None, *, param_penalty: Optional[Callable] = None,
     args = parser.parse_args(argv)
     if args.dataset is None:
         parser.error("the following arguments are required: -d/--dataset")
-    for attr, is_set, flag, item in LATER_FLAGS:
-        if is_set(getattr(args, attr)):
-            raise SystemExit(f"{flag} is not yet ported to segtpu_torch: it waits for {item}")
     owns_group = not dist.is_initialized()
     distributed = maybe_initialize_distributed(args.device)
     device = rank_device(args.device)
@@ -266,10 +259,18 @@ def main(argv=None, *, param_penalty: Optional[Callable] = None,
     else:
         model = get_model(args.model, patch_size=args.patch_size, num_channels=num_channels,
                           device=device)
+    if args.s2d:
+        if not hasattr(model, "s2d"):
+            raise SystemExit(f"--s2d: model '{args.model}' has no s2d mode")
+        model.s2d = True
     if args.remat:
         if not hasattr(model, "remat"):
             raise SystemExit(f"--remat: model '{args.model}' has no remat mode")
         model.remat = True
+    if args.packed:
+        if not hasattr(model, "packed"):
+            raise SystemExit(f"--packed: model '{args.model}' has no packed mode")
+        model.packed = True
     if args.init_torch:
         sd = torch.load(args.init_torch, map_location="cpu", weights_only=False)
         if isinstance(sd, dict) and "model" in sd:  # a full reference snapshot

@@ -33,18 +33,19 @@ from segtpu_torch.train.checkpoint import load_flax_snapshot, save_flax_snapshot
 from segtpu_torch.train.state import make_predict_step
 
 from torch_port_util import jax_linknet34, jax_predict_fn
+from torch_port_util import module_tmp, tmp_path  # noqa: F401  (removed after use)
 
 META = dict(loss=0.25, epoch=3, train_history={"epoch": [3], "loss": [0.5]})
 
 
 @pytest.fixture(scope="module")
-def segtpu_ckpt(tmp_path_factory):
+def segtpu_ckpt(module_tmp):
     """segtpu's LinkNet34 saved by segtpu's ``save_snapshot`` (Adam state
     included) into ``linknet34_checkpoint.ckpt``."""
     module, params, stats = jax_linknet34(2)
     state = TrainState.create(module.apply, jax.tree_util.tree_map(jnp.asarray, params),
                               jax.tree_util.tree_map(jnp.asarray, stats), optax.adam(1e-3))
-    path = tmp_path_factory.mktemp("ckpt") / "linknet34_checkpoint.ckpt"
+    path = module_tmp("ckpt") / "linknet34_checkpoint.ckpt"
     jax_checkpoint.save_snapshot(state, snapshot_path=str(path), args="-m linknet34", **META)
     return module, params, stats, path
 

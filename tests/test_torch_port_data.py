@@ -38,6 +38,7 @@ from segtpu_torch.data.common import TiledImagesDataset
 from segtpu_torch.data.split import train_test_split
 from segtpu_torch.tiles import ImageSlicer
 from segtpu_torch.utils import read_gray, read_mask
+from torch_port_util import module_tmp, tmp_path  # noqa: F401  (removed after use)
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURE_IMAGES, PATCH = 6, 128
@@ -241,8 +242,8 @@ def test_nuclei_fixture_matches_segtpu(index):
 
 
 @pytest.fixture(scope="module")
-def fixture_dir(tmp_path_factory):
-    root = tmp_path_factory.mktemp("nuclei") / "dsb2018"
+def fixture_dir(module_tmp):
+    root = module_tmp("nuclei") / "dsb2018"
     nuclei_fixture.write_fixture(str(root), FIXTURE_IMAGES)
     return root
 
@@ -321,10 +322,10 @@ INRIA_NAMES = [f"{city}{i}" for city in ("austin", "vienna") for i in range(1, 1
 
 
 @pytest.fixture(scope="module")
-def inria_dirs(tmp_path_factory):
+def inria_dirs(module_tmp):
     """A tiled INRIA directory of 20 images and its patches, cut by each
     package's cut_dataset_in_patches at 120 x 120 instead of 5000 x 5000."""
-    root = _write_inria(tmp_path_factory.mktemp("inria"), INRIA_NAMES)
+    root = _write_inria(module_tmp("inria"), INRIA_NAMES)
     out = {}
     mp = pytest.MonkeyPatch()
     try:

@@ -33,6 +33,7 @@ from segtpu_torch.models.encoders.resnet import resnet34, resnet101
 from segtpu_torch.train.checkpoint import save_snapshot
 
 from torch_port_util import ATOL, _jax_variables, _nchw, _nhwc
+from torch_port_util import tmp_path  # noqa: F401  (removed after use)
 
 VGG_WIDTHS = {"vgg11": (64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512),
               "vgg16": (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M",

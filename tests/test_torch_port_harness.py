@@ -53,6 +53,7 @@ from segtpu_torch.train.state import make_eval_step, make_train_step
 from segtpu_torch.utils import count_parameters, make_grid
 
 from torch_port_util import jax_linknet34, port_linknet34
+from torch_port_util import module_tmp, tmp_path  # noqa: F401  (removed after use)
 
 HISTORY_KEYS = ["epoch", "loss", "val_loss", "iou", "accuracy", "val_iou", "val_accuracy"]
 
@@ -454,9 +455,9 @@ def _no_dropout(args, num_channels):
 
 
 @pytest.fixture(scope="module")
-def straight(tmp_path_factory):
+def straight(module_tmp):
     """``-e 2 -s 2`` in one run, dropout off, Adam."""
-    exp = tmp_path_factory.mktemp("straight")
+    exp = module_tmp("straight")
     history = train_cli.main(_cli_args(exp, epochs=2, **ADAM_2), model_builder=_no_dropout)
     return exp, history
 
@@ -607,12 +608,20 @@ def test_cli_shapes_device_with_cap_sgdr_and_resume(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag", [["--model-parallel", "2"], ["--s2d"], ["--remat"], ["--packed"],
                                   ["--encoder-weights", "w.pth"]])
 def test_cli_flags_of_later_slices_exit(tmp_path, flag):
-    """Each unported flag exits naming its ROADMAP item before the run makes
-    a file. The ported ones exit as segtpu's do on what they cannot take:
-    ``--remat`` for a model without a remat mode, ``--model-parallel 2`` in a
-    process that runs alone, ``--encoder-weights`` for a missing file."""
-    if flag == ["--remat"]:
-        with pytest.raises(SystemExit, match="--remat: model 'linknet34' has no remat mode"):
+    """The flags of the later slices exit as segtpu's do on what they cannot
+    take: ``--s2d`` for a model without an s2d mode (dilated_linknet34),
+    ``--remat`` and ``--packed`` for a model without a remat or packed mode
+    (linknet34), ``--model-parallel 2`` in a process that runs alone,
+    ``--encoder-weights`` for a missing file."""
+    if flag == ["--s2d"]:
+        argv = _cli_args(tmp_path, *flag)
+        argv[argv.index("linknet34")] = "dilated_linknet34"
+        with pytest.raises(SystemExit, match="--s2d: model 'dilated_linknet34' has no s2d mode"):
+            train_cli.main(argv)
+        return
+    if flag in (["--remat"], ["--packed"]):
+        with pytest.raises(SystemExit,
+                           match=f"{flag[0]}: model 'linknet34' has no {flag[0][2:]} mode"):
             train_cli.main(_cli_args(tmp_path, *flag))
         return
     if flag[0] == "--model-parallel":
@@ -623,10 +632,6 @@ def test_cli_flags_of_later_slices_exit(tmp_path, flag):
     if flag[0] == "--encoder-weights":
         with pytest.raises(FileNotFoundError, match="w.pth"):
             train_cli.main(_cli_args(tmp_path, *flag))
-        return
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        train_cli.main(_cli_args(tmp_path, *flag))
-    assert not (tmp_path / "shapes").exists()
 
 
 def test_cli_device_augs_trains_and_resumes_with_the_same_draws(tmp_path, monkeypatch):

@@ -23,6 +23,7 @@ from segtpu_torch.train.checkpoint import save_snapshot
 from segtpu_torch.train.state import make_predict_step
 
 from torch_port_util import jax_linknet34, jax_predict_fn, port_linknet34
+from torch_port_util import tmp_path  # noqa: F401  (removed after use)
 
 
 def _nchw(a):

@@ -3,6 +3,7 @@ across by ``state_dict_from_jax``; the port's registry, device rule and
 checkpoint format."""
 
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -20,6 +21,7 @@ from segtpu_torch.models import get_model
 from segtpu_torch.train.checkpoint import load_snapshot, save_snapshot
 
 from torch_port_util import jax_linknet34, port_linknet34
+from torch_port_util import tmp_path  # noqa: F401  (removed after use)
 
 
 @pytest.fixture(scope="module")
@@ -87,6 +89,18 @@ def test_state_dict_from_jax_rejects_unported_model():
                                   stats["layer3_3"]["bn2"]["var"])
     with pytest.raises(ValueError, match="no mapping for model 'wider_resnet_50'"):
         state_dict_from_jax("wider_resnet_50", {}, {})
+
+
+def test_no_source_of_the_port_imports_jax_or_segtpu():
+    """The import lines themselves, in the text of every source of the port
+    and of chip_smoke.py (the test above sees only what the modules load)."""
+    root = Path(__file__).resolve().parent.parent
+    sources = sorted((root / "segtpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    assert len(sources) > 50
+    pattern = re.compile(r"^\s*(import|from) (jax|segtpu)(\.| |$)")
+    bad = [f"{p.relative_to(root)}:{i}" for p in sources
+           for i, line in enumerate(p.read_text().splitlines(), 1) if pattern.match(line)]
+    assert not bad, bad
 
 
 def _leaves(tree):

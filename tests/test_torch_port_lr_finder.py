@@ -25,6 +25,7 @@ from segtpu_torch.ops import losses
 from segtpu_torch.train import optim
 
 from torch_port_util import _jax_variables, _no_dropout
+from torch_port_util import tmp_path  # noqa: F401  (removed after use)
 
 torch.set_num_threads(2)
 

@@ -25,6 +25,7 @@ from segtpu_torch.parallel import distributed
 from segtpu_torch.train.checkpoint import read_snapshot, save_snapshot
 
 from torch_port_util import run_ranks
+from torch_port_util import module_tmp, tmp_path  # noqa: F401  (removed after use)
 
 CLI_RTOL = 1e-5
 # data parallel trains with SGD: Adam's first steps move each weight by about
@@ -70,11 +71,11 @@ def _assert_close_history(got, want, rtol=CLI_RTOL):
 
 
 @pytest.fixture(scope="module")
-def one_process(tmp_path_factory):
+def one_process(module_tmp):
     """The one-process histories of two epochs, by optimizer."""
     out = {}
     for name, flags in OPTIMIZERS.items():
-        history = train_cli.main(_train_args(tmp_path_factory.mktemp(name), *flags,
+        history = train_cli.main(_train_args(module_tmp(name), *flags,
                                              "--snapshot-every", "0", epochs=2))
         out[name] = {k: [float(v) for v in vs] for k, vs in history.items()}
     return out
@@ -118,6 +119,16 @@ def test_train_cli_model_parallel_checkpoint_and_resume(one_process, tmp_path):
     _assert_close_history({k: v[-1:] for k, v in _history(tmp_path).items()},
                           {k: v[-1:] for k, v in want.items()}, rtol=1e-4)
     shutil.rmtree(tmp_path / "shapes")
+
+
+def test_train_cli_s2d_under_model_parallel_equals_one_process(tmp_path):
+    """``--s2d --model-parallel 2`` (LinkNet34's head in s2d form at 65 x
+    65, its encoder's and decoder's wide layers sharded): the epoch equals
+    the one-process ``--s2d`` run's to rtol 1e-5."""
+    want = train_cli.main(_train_args(tmp_path / "one", "--s2d", *OPTIMIZERS["sgd"]))
+    _ranks_train(tmp_path / "ranks", "--s2d", "--model-parallel", "2", *OPTIMIZERS["sgd"])
+    _assert_close_history(_history(tmp_path / "ranks"),
+                          {k: [float(v) for v in vs] for k, vs in want.items()})
 
 
 def test_train_cli_rejects_a_batch_that_does_not_split(tmp_path):
@@ -164,10 +175,18 @@ def test_launch_variables(monkeypatch):
         distributed.maybe_initialize_distributed("cpu")
 
 
+_SHAPES_RUN = ["-m", "linknet34", "-d", "shapes", "-b", "2", "-p", "64", "-e", "1", "-s", "1",
+               "--no-tensorboard"]
+
+
 @pytest.mark.parametrize("module, argv", [
     ("train_cli", ["-m", "linknet34", "-d", "shapes", "--model-parallel", "1"]),
     ("submit_cli", ["-m", "linknet34", "-c", "x.pth", "--tile-parallel"]),
-    ("profile_reduce", []), ("profile_serve", []), ("profile_train", [])])
+    ("profile_reduce", []), ("profile_serve", []), ("profile_train", []),
+    ("train_ab_cli", _SHAPES_RUN), ("train_reg_cli", _SHAPES_RUN),
+    ("bench", ["--config", "zf_unet-512"]),
+    ("lr_finder", ["-m", "linknet34", "-d", "shapes", "-b", "2", "-p", "64"]),
+    ("ab_nuclei", ["--work", "work"])])
 def test_entry_points_resolve_the_device(module, argv, tmp_path, monkeypatch):
     """Without a GPU every entry point raises the port's device error, unless
     the caller asks for the CPU: no silent switch, the parallel flags too."""
@@ -180,10 +199,22 @@ def test_entry_points_resolve_the_device(module, argv, tmp_path, monkeypatch):
         importlib.import_module(f"segtpu_torch.{module}").main(argv)
 
 
-def test_submit_cli_s2d_exits_naming_its_item(tmp_path):
-    """``--s2d`` is not ported: the submit CLI exits naming ROADMAP's s2d
-    item before it builds anything."""
-    with pytest.raises(SystemExit, match="s2d item of ROADMAP.md"):
+def test_submit_cli_s2d_serves_in_s2d_form(tmp_path, monkeypatch):
+    """``--s2d`` sets the s2d form of a model that has one (LinkNet34's
+    head) before the checkpoint loads; the dilated LinkNet34 has none and
+    exits with segtpu's message."""
+    seen = []
+
+    def stop(model, *args, **kwargs):
+        seen.append(model.s2d)
+        raise SystemExit("stop")
+
+    monkeypatch.setattr(submit_cli, "auto_file", lambda path: path)
+    monkeypatch.setattr(submit_cli, "load_checkpoint", stop)
+    with pytest.raises(SystemExit, match="stop"):
         submit_cli.main(["-m", "linknet34", "-c", "x.pth", "--s2d", "--device", "cpu",
                          "--submits-dir", str(tmp_path / "s")])
-    assert not (tmp_path / "s").exists()
+    assert seen == [True]
+    with pytest.raises(SystemExit, match="--s2d: model 'dilated_linknet34' has no s2d mode"):
+        submit_cli.main(["-m", "dilated_linknet34", "-c", "x.pth", "--s2d", "--device", "cpu",
+                         "--submits-dir", str(tmp_path / "s")])

@@ -21,6 +21,7 @@ from segtpu_torch.augment import tta_d4_aug, tta_d4_aug_batch, tta_d4_deaug
 from segtpu_torch.ops import numpy_losses
 from segtpu_torch.reporting import plot, plot_loss
 from segtpu_torch.utils import show_landmarks_batch
+from torch_port_util import tmp_path  # noqa: F401  (removed after use)
 
 LOSSES = ["binary_crossentropy", "jaccard_coef", "jaccard_loss", "smooth_jaccard_loss",
           "bce_jaccard_loss", "bce_smooth_jaccard_loss"]

@@ -44,6 +44,7 @@ from segtpu_torch.train.state import make_train_step
 from segtpu_torch.utils import count_parameters
 
 from torch_port_util import _grad_errors, _jax_variables, _nchw, _nhwc, _no_dropout, _numpy_dicts
+from torch_port_util import tmp_path  # noqa: F401  (removed after use)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -1,9 +1,9 @@
 """segtpu_torch's FC-DenseNet (Tiramisu) against segtpu's: the weight
 mapping, ``_center_crop`` and ``TransitionUp``, eval and train-mode forwards
 of tiramisu57 and tiramisu67 at full width and of a narrow FCDenseNet, one
-training step of the narrow model, per-block remat, the options that are not
-ported, the train CLI's ``--remat`` and the ``tiramisu67-512-b4`` bench
-config.
+training step of the narrow model, per-block remat, segtpu's packed growth and ``conv_in`` rematerialisation against the
+concat block in float64, the train CLI's ``--remat`` and ``--packed``, and
+the ``tiramisu67-512-b4`` bench config.
 
 Small: full-width models at 2 x 32 x 32, a narrow FCDenseNet (two down
 blocks of 2 layers, growth 4, first conv 8) at 2 x 36 x 44, whose odd
@@ -15,6 +15,7 @@ Dropout is off on both sides where outputs are compared.
 """
 
 import copy
+import dataclasses
 import math
 
 import numpy as np
@@ -40,6 +41,7 @@ from segtpu_torch.compat import jax_params
 from segtpu_torch.compat.jax_params import state_dict_from_jax
 from segtpu_torch.data import shapes
 from segtpu_torch.models import get_model, layers, tiramisu
+from segtpu_torch.ops import abn as abn_ops
 from segtpu_torch.ops import losses, metrics
 from segtpu_torch.train import optim
 from segtpu_torch.train.checkpoint import load_snapshot
@@ -48,6 +50,8 @@ from segtpu_torch.utils import count_parameters
 
 from torch_port_util import (_grad_errors, _grad_recorder, _jax_variables, _nchw, _nhwc,
                              _no_dropout, _numpy_dicts)
+from torch_port_util import _compare, _segtpu_f64_grads
+from torch_port_util import tmp_path  # noqa: F401  (removed after use)
 
 NARROW = dict(down_blocks=(2, 2), up_blocks=(2, 2), bottleneck_layers=2, growth_rate=4,
               out_chans_first_conv=8, n_classes=1)
@@ -268,10 +272,112 @@ def test_remat_equals_no_remat():
     assert all(int(v) == 1 for k, v in state1.items() if k.endswith("num_batches_tracked"))
 
 
-@pytest.mark.parametrize("option", [dict(packed=True), dict(remat_policy="conv_in")])
-def test_options_not_ported_raise(option):
-    with pytest.raises(NotImplementedError, match="A18 of ROADMAP.md"):
-        tiramisu.FCDenseNet67(**option)
+def _f64_step(model, x, **attrs):
+    """One train-mode forward and backward (dropout on, torch seeded) of a
+    copy of the float64 ``model`` with ``attrs`` set."""
+    m = copy.deepcopy(model)
+    for k, v in attrs.items():
+        setattr(m, k, v)
+    torch.manual_seed(3)
+    y = m(x)
+    (y * torch.linspace(-1, 1, y.numel(), dtype=y.dtype).view(y.shape)).sum().backward()
+    return y.detach(), {n: p.grad for n, p in m.named_parameters()}, m.state_dict()
+
+
+@pytest.mark.parametrize("option", [dict(packed=True), dict(remat_policy="conv_in"),
+                                    dict(packed=True, remat_policy="conv_in"),
+                                    dict(packed=True, remat=True)],
+                         ids=["packed", "conv_in", "packed-conv_in", "packed-remat"])
+def test_options_equal_the_concat_block_in_float64(option):
+    """segtpu's A18 options: ``packed`` growth (one buffer per dense block)
+    and ``remat_policy="conv_in"`` (the BN-ReLU chain rematerialised), alone
+    and together, and packed under ``remat``: the narrow FCDenseNet's
+    logits, every gradient and every running statistic equal the concat
+    block's in float64 within 1e-10 relative, dropout on; running
+    statistics updated once per step."""
+    model = tiramisu.FCDenseNet(**NARROW).double().train()
+    x = torch.from_numpy(np.random.RandomState(12).normal(0.0, 1.0, (2, 3, 36, 44)))
+    (y1, g1, s1), (y0, g0, s0) = _f64_step(model, x, **option), _f64_step(model, x)
+    assert float((y1 - y0).abs().max()) <= 1e-10 * float(y0.abs().max())
+    floor = 1e-3 * max(float(g.abs().max()) for g in g0.values())
+    for n, g in g0.items():
+        assert float((g1[n] - g).abs().max()) <= 1e-10 * max(float(g.abs().max()), floor), n
+    for k, v in s0.items():
+        assert float((s1[k].double() - v.double()).abs().max()) <= 1e-10 * max(
+            1.0, float(v.double().abs().max())), k
+    assert all(int(v) == 1 for k, v in s1.items() if k.endswith("num_batches_tracked"))
+
+
+A18_OPTIONS = [dict(packed=True), dict(remat_policy="conv_in"),
+               dict(packed=True, remat_policy="conv_in")]
+A18_IDS = ["packed", "conv_in", "packed-conv_in"]
+
+
+@pytest.mark.parametrize("option", A18_OPTIONS, ids=A18_IDS)
+def test_options_match_segtpu(option, monkeypatch):
+    """The narrow FCDenseNet with an A18 option on both sides, on segtpu's
+    seeded weights (``_compare``): eval logits, train-mode logits and every
+    running statistic after that forward, atol 3e-4 in fp32, dropout off;
+    then every parameter gradient in float64 against segtpu's float64
+    gradients, within 1e-6 of the tensor's largest |g| (floored at 1e-3 of
+    the model's largest; segtpu rounds its logits to fp32)."""
+    monkeypatch.setattr("segtpu.models.layers.DROPOUT_DISABLED", True)
+    module = dataclasses.replace(jax_tiramisu.FCDenseNet(**NARROW), **option)
+    model = tiramisu.FCDenseNet(**NARROW, **option)
+    x = np.random.RandomState(13).normal(0.0, 1.0, (2, 36, 44, 3)).astype(np.float32)
+    _compare(module, model, NARROW_ENTRIES, x, N_NORMS["narrow"])
+
+    params, stats = _jax_variables(module, (1, 36, 44, 3))
+    model.load_state_dict(jax_params.state_dict_from_entries(NARROW_ENTRIES, params, stats))
+    model = _no_dropout(model).double().train()
+    x64 = x.astype(np.float64)
+    out = model(_nchw(x64))
+    w = np.linspace(-1.0, 1.0, out.numel()).reshape(_nhwc(out).shape)
+    (out * _nchw(w)).sum().backward()
+    want = _segtpu_f64_grads(module, NARROW_ENTRIES, params, stats, x64, w)
+    got = {n: p.grad.numpy() for n, p in model.named_parameters()}
+    assert set(got) == set(want)
+    floor = 1e-3 * max(float(np.abs(g).max()) for g in want.values())
+    assert max(_grad_errors(got, want, floor)) <= 1e-6
+
+
+def test_packed_block_reads_one_buffer():
+    """Each layer of a packed block reads an alias of the block's buffer
+    (its storage, its first channels), which later writes do not bump;
+    each BatchNorm copies its strided prefix once (a dense input for
+    B1/B2), and the last layer of a non-upsampling block gets no copy
+    before the transition."""
+    block = tiramisu.DenseBlock(8, 4, 3).train()
+    ptrs = []
+    block.layers[0].norm.register_forward_pre_hook(
+        lambda mod, inp: ptrs.append(inp[0].untyped_storage().data_ptr()))
+    block.layers[2].norm.register_forward_pre_hook(
+        lambda mod, inp: ptrs.append(inp[0].untyped_storage().data_ptr()))
+    x = torch.randn(2, 8, 6, 6, requires_grad=True)
+    abn_ops._dense.copies = 0
+    out = block(x, packed=True)
+    assert out.shape == (2, 20, 6, 6) and ptrs[0] == ptrs[1] == out.untyped_storage().data_ptr()
+    assert abn_ops._dense.copies == 3
+    out.sum().backward()
+    assert torch.equal(out[:, :8], x.detach()) and x.grad is not None
+    # a channels_last buffer's prefix is copied to channels_last, the layout
+    # the convolutions after it take
+    cl = block(x.detach().contiguous(memory_format=torch.channels_last), packed=True)
+    assert cl.is_contiguous(memory_format=torch.channels_last)
+    prefix = cl[:, :12]
+    assert not prefix.is_contiguous(memory_format=torch.channels_last)
+    assert abn_ops._dense(prefix).is_contiguous(memory_format=torch.channels_last)
+
+
+def test_remat_and_remat_policy_are_exclusive():
+    with pytest.raises(ValueError, match="exclusive"):
+        tiramisu.FCDenseNet(remat=True, remat_policy="conv_in", **NARROW)
+    model = tiramisu.FCDenseNet(**NARROW)
+    model.remat, model.remat_policy = True, "conv_in"
+    with pytest.raises(ValueError, match="exclusive"):
+        model(torch.zeros(1, 3, 32, 32))
+    with pytest.raises(ValueError, match="unknown remat_policy"):
+        tiramisu.FCDenseNet(remat_policy="everything", **NARROW)
 
 
 def _cli(exp_dir, *extra, model="tiramisu57"):
@@ -280,10 +386,31 @@ def _cli(exp_dir, *extra, model="tiramisu57"):
             "--seed", "0", "--experiments-dir", str(exp_dir), *extra]
 
 
-def test_cli_packed_exits_naming_its_roadmap_item(tmp_path):
-    with pytest.raises(SystemExit, match="--packed .*A18 of ROADMAP.md"):
-        train_cli.main(_cli(tmp_path, "--packed"))
-    assert not (tmp_path / "shapes").exists()
+def test_train_cli_trains_tiramisu57_packed(tmp_path, monkeypatch):
+    """``--packed``: one step of tiramisu57 at 64 x 64 with packed growth
+    (the model the step gets has it set); the CSV is written; ``-r -e 2``
+    resumes it, packed again, and its second epoch's loss is an unbroken
+    two-epoch run's, bit for bit. A model without a packed mode exits with
+    segtpu's message."""
+    seen = []
+    real = train_cli.make_train_step
+
+    def spy(model, *args, **kwargs):
+        seen.append(model.packed)
+        return real(model, *args, **kwargs)
+
+    monkeypatch.setattr(train_cli, "make_train_step", spy)
+    history = train_cli.main(_cli(tmp_path, "--packed", "-s", "1"))
+    assert seen == [True] and history["epoch"] == [0]
+    assert all(math.isfinite(v) for v in history["loss"])
+    run = tmp_path / "shapes" / "bce" / "shapes_tiramisu57_64_rgb_bce"
+    assert (run / "shapes_tiramisu57_64_rgb_bce.csv").exists()
+    resumed = train_cli.main(_cli(tmp_path, "--packed", "-s", "1", "-e", "2", "-r"))
+    unbroken = train_cli.main(_cli(tmp_path / "unbroken", "--packed", "-s", "1", "-e", "2"))
+    assert seen == [True] * 3 and resumed["epoch"][-1] == 1
+    assert resumed["loss"][-1] == unbroken["loss"][-1]
+    with pytest.raises(SystemExit, match="--packed: model 'zf_unet' has no packed mode"):
+        train_cli.main(_cli(tmp_path / "zf", "--packed", model="zf_unet"))
 
 
 def test_train_cli_trains_tiramisu57_under_remat(tmp_path):

@@ -7,6 +7,7 @@ weights come from ``tests/torch_port_util.py``. Everything runs in fp32 on
 the CPU, the kernels through their plain versions.
 """
 
+import json
 import math
 import os
 import sys
@@ -27,6 +28,7 @@ from segtpu.train.state import TrainState
 from segtpu.train.state import make_eval_step as jax_make_eval_step
 from segtpu.train.state import make_train_step as jax_make_train_step
 
+from segtpu_torch import bench
 from segtpu_torch.bench import BENCH_CONFIGS, measure_train
 from segtpu_torch.compat.jax_params import state_dict_from_jax
 from segtpu_torch.data import shapes
@@ -309,16 +311,34 @@ def test_linknet34_eval_step_uses_running_stats(linknet_step):
 # ---------------------------------------------------------------------------
 
 def test_bench_config_matches_segtpu():
-    """The port's bench configs are segtpu's five training configs, which
-    run zf_unet-512 and unet11-finetune-512 in s2d form, the same function
-    that the port computes in normal space."""
+    """The port's bench configs are segtpu's five training configs, with
+    segtpu's default s2d form on zf_unet-512 and unet11-finetune-512."""
     train_configs = {k for k, v in jax_bench.BENCH_CONFIGS.items() if v["kind"] == "train"}
     assert set(BENCH_CONFIGS) == train_configs and len(train_configs) == 5
     for name, config in BENCH_CONFIGS.items():
         want = dict(jax_bench.BENCH_CONFIGS[name])
         assert want.pop("kind") == "train"
-        assert want.pop("s2d", False) == (name in ("zf_unet-512", "unet11-finetune-512"))
+        assert config.get("s2d", False) == (name in ("zf_unet-512", "unet11-finetune-512"))
         assert config == want, name
+
+
+@pytest.mark.parametrize("config", sorted(BENCH_CONFIGS))
+@pytest.mark.parametrize("flags", [[], ["--no-s2d"]], ids=["default", "no-s2d"])
+def test_bench_runs_segtpu_form_and_prints_it(config, flags, monkeypatch, capsys):
+    """segtpu's bench form: s2d on zf_unet-512 and unet11-finetune-512
+    unless ``--no-s2d``, normal space elsewhere; the JSON line names it."""
+    seen = {}
+
+    def fake_measure(**kwargs):
+        seen.update(kwargs)
+        return 1.0
+
+    monkeypatch.setattr(bench, "measure_train", fake_measure)
+    bench.main(["--config", config, "--device", "cpu"] + flags)
+    line = json.loads(capsys.readouterr().out)
+    s2d = config in ("zf_unet-512", "unet11-finetune-512") and not flags
+    assert seen["s2d"] is s2d and line["form"] == ("s2d" if s2d else "normal")
+    assert line["metric"] == f"{config} bf16 train throughput" and line["device"] == "cpu"
 
 
 def test_measure_train_runs_on_cpu_when_asked():

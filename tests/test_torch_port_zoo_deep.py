@@ -43,6 +43,7 @@ from segtpu_torch.train.checkpoint import load_snapshot, save_snapshot
 from segtpu_torch.utils import count_parameters
 
 from torch_port_util import _numpy_dicts
+from torch_port_util import tmp_path  # noqa: F401  (removed after use)
 
 DEEP = ["gcn", "psp_net", "duc", "duc_dc"]
 NEW = ["dilated_linknet34", "gcn", "gcn34", "psp_net", "duc", "duc_dc", "linknext", "squeezenet"]

@@ -5,15 +5,19 @@ with torchrun's variables set (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
 MASTER_PORT); it joins the gloo process group on the CPU, runs every case of
 ``cases.pt`` and writes ``rank<r>.pt``. Cases:
 
-  * ``step``: LinkNet34 from the given state_dict, ``steps`` training steps
-    on the given global batch, under ``model_parallel`` (1: data parallel
-    over every rank); returns the logs, the full gradients, state_dict and
-    optimizer state, and this rank's parameter and moment shapes;
+  * ``step``: LinkNet34 (or the ``narrow`` model: a class of
+    ``segtpu_torch.models`` and its arguments, with ``attrs`` such as
+    ``s2d`` set) from the given state_dict, ``steps`` training steps on the
+    given global batch, under ``model_parallel`` (1: data parallel over
+    every rank; ``min_features`` the smallest channel count it shards);
+    returns the logs, the full gradients, state_dict and optimizer state,
+    and this rank's parameter and moment shapes;
   * ``loader``: this rank's batches of the host loader at each worker count
     and of the ``shapes-device`` loader;
   * ``tile``: tile-parallel ``predict_tiled`` probabilities.
 """
 
+import importlib
 import sys
 
 import torch
@@ -30,16 +34,28 @@ def _step(case):
     from segtpu_torch.train.state import make_train_step
 
     dtype = case["dtype"]
-    model = get_model("linknet34", device="cpu").to(dtype)
+    if "narrow" in case:
+        module_name, cls, kwargs = case["narrow"]
+        model = getattr(importlib.import_module(module_name), cls)(**kwargs).to(dtype)
+    else:
+        model = get_model("linknet34", device="cpu").to(dtype)
     model.load_state_dict(case["state_dict"])
+    for attr, value in case.get("attrs", {}).items():
+        setattr(model, attr, value)
     if not case["dropout"]:
-        model.finaldrop1.p = 0.0
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Dropout, torch.nn.Dropout2d)):
+                m.p = 0.0
     grid = make_grid(case["model_parallel"])
     if grid.world > 1:
         replicate(model)
     set_process_group(model, grid.data_group)
     set_data_shard(model, grid.data_rank, grid.data_size)
-    sharded = tp.shard_model(model, grid)
+    min_features, tp.MIN_FEATURES = tp.MIN_FEATURES, case.get("min_features", tp.MIN_FEATURES)
+    try:
+        sharded = tp.shard_model(model, grid)
+    finally:
+        tp.MIN_FEATURES = min_features
     opt = get_optimizer(case["optimizer"], model.parameters(), case["lr"])
     step = make_train_step(model, opt, get_loss("bce_jaccard"), default_metrics(), seed=3,
                            grid=grid)

@@ -3,17 +3,20 @@ randomised normalisation parameters and running statistics, and the port's
 LinkNet34 carrying the same weights; seeded segtpu trees of any module;
 NHWC <-> NCHW; a gradient-recording optax SGD and the per-tensor gradient
 error; the eval and train-mode forward comparison of a segtpu module and
-its port (``_compare``)."""
+its port (``_compare``); temporary directories that are removed when the
+test or the module that made them ends (``tmp_path``, ``module_tmp``)."""
 
 import copy
 import math
 import os
+import shutil
 import socket
 import subprocess
 import sys
 
 import numpy as np
 import optax
+import pytest
 import torch
 
 import jax
@@ -23,6 +26,31 @@ from segtpu.models import get_model as jax_get_model
 
 from segtpu_torch.compat.jax_params import state_dict_from_entries, state_dict_from_jax
 from segtpu_torch.models import get_model
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed with its files when the test ends. A
+    module that imports it overrides pytest's own: the port's CLI tests
+    write LinkNet34 checkpoints with Adam state (87-262 MB each), and pytest
+    keeps the directories of its last three runs."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+@pytest.fixture(scope="module")
+def module_tmp(tmp_path_factory):
+    """``mktemp(name)`` for a module-scoped fixture; every directory it made
+    is removed when the module's tests end."""
+    made = []
+
+    def mktemp(name: str):
+        made.append(tmp_path_factory.mktemp(name))
+        return made[-1]
+
+    yield mktemp
+    for path in made:
+        shutil.rmtree(path, ignore_errors=True)
 
 
 def _randomise_norms(params, stats, rng):
@@ -121,6 +149,23 @@ def _grad_errors(got, want, floor):
     """Per tensor: max |got - want| over max(max |want|, floor)."""
     return sorted(float(np.abs(got[n] - w).max()) / max(float(np.abs(w).max()), floor)
                   for n, w in want.items())
+
+
+def _segtpu_f64_grads(module, entries, params, stats, x, w):
+    """segtpu's parameter gradients of ``sum(logits * w)`` after one
+    train-mode forward on ``x`` (NHWC numpy), run in float64
+    (``jax.enable_x64``), under the port's state_dict keys as numpy."""
+    with jax.enable_x64():
+        to64 = lambda t: jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), t)  # noqa
+
+        def loss(p):
+            y, _ = module.apply({"params": p, "batch_stats": to64(stats)}, jnp.asarray(x),
+                                train=True, mutable=["batch_stats"])
+            return (y * jnp.asarray(w)).sum()
+
+        grads = _numpy_dicts(jax.jit(jax.grad(loss))(to64(params)))
+    return {k: v.numpy() for k, v in state_dict_from_entries(entries, grads, stats).items()
+            if not k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
 
 
 ATOL = 3e-4
