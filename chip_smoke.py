@@ -269,10 +269,35 @@ Phases, one JSON line each; any failure exits non-zero:
                linknet34's first leg again, and whether their losses and
                val IoU repeat the leg's bits. --ab-out writes comparison.md
                and the port's CSVs
+  ladder_l0    segtpu_torch.ab_ladder's L0 leg (augmentations, shuffle and
+               dropout off; the nuclei fixture, linknet34 at patch 128,
+               batch 8, fp32, TF32 off, cuDNN deterministic) for one epoch
+               cut to 16 train steps, twice: both write the same CSV bit
+               for bit; the ladder's switches and the precision flags are
+               restored after
   train_nuclei_device_augs  the nuclei fixture's -d dsb2018 (linknet34,
                patch 128, batch 8, fp32, Adam lr 1e-4): 1 epoch with the
                host augmentations and 2 with --device-augs, images/s of
                each; then the resumed run's draws, as train_cli_device_augs
+  bench_all    python -m segtpu_torch.bench --all through bench.run_config:
+               the five training configs at 3 warm and 5 timed steps (their
+               launches (3 + 5) x the layer count) and
+               inria-tiled-inference-5000 at one image and one repeat (B2
+               552 per image, warm image included); its s/image within 10%
+               of serve's (both predict_tiled_stream at depth 2)
+  roofline     segtpu_torch.roofline on linknet34-bce_jaccard-adam-512 and
+               zf_unet-512 in s2d and normal form (10 timed steps): model
+               GFLOP per step, ms/step, TFLOP/s, mfu_pct in (0, 100], the two
+               zf_unet forms' GFLOP equal, the ops' bytes; launches (2 + 3 +
+               10) x the layer count (the FLOP count's step and the byte
+               count's step included)
+  tiled_floor  config #5's bound (segtpu_torch.tiled_floor): 2888 model
+               passes of one forward's FLOPs, the merge's bytes, the pinned
+               transfers; fails if the floor exceeds serve's s/image
+  bn_sol       segtpu_torch.bn_sol on linknet34-bce_jaccard-adam-512: the 48
+               BatchNorm/InPlaceABN sites, 3x their bytes at 3.35 TB/s, the
+               step and its B1/B3 time from profile_train (a profiler
+               session: it runs after the other new phases)
   counters     after training, every cached counter buffer of the B1/B3
                reduction holds zeros
   one_launch   a torch.profiler count: one call of B1 (either form), B2 or
@@ -290,8 +315,9 @@ train_cli_albunet, each train_cli_device_augs run, each train_nuclei leg,
 each train_nuclei_device_augs run, each rank's train_dp timed steps,
 train_tp step and serve_tile_parallel bf16 pass, train_dp_cli, serve_ckpt's
 submit_cli run, serve_host_slice's second host-sliced image, train_s2d's s2d
-runs, train_tiramisu_a18's packed and conv_in runs) and read
-just after it. Then the kernel table line, the nvidia-smi line, and last
+runs, train_tiramisu_a18's packed and conv_in runs, ladder_l0's legs, each
+bench_all config, each roofline run, tiled_floor, bn_sol) and read just
+after it. Then the kernel table line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from a seed,
 with the normalisation statistics set from one calibration batch so that every
 layer sees activations of order one.
@@ -322,7 +348,8 @@ import torch.nn.functional as F
 
 import torch.distributed as dist
 
-from segtpu_torch import ab_nuclei, lr_finder, native, submit_cli, train_ab_cli, train_cli
+from segtpu_torch import (ab_ladder, ab_nuclei, bench, bn_sol, lr_finder, native, roofline,
+                          submit_cli, tiled_floor, train_ab_cli, train_cli)
 from segtpu_torch.compat.encoder_weights import install_encoder_weights
 from segtpu_torch.augment import host as aug
 from segtpu_torch.data import get_dataset
@@ -411,17 +438,19 @@ PATHS = ("serve", "train", "train_zf_unet", "train_unet_abn", "train_tiramisu67"
          "train_cli", "train_ab_cli", "train_cli_albunet", "train_cli_device_augs",
          "train_nuclei", "train_nuclei_device_augs", "train_dp", "train_dp_cli", "train_tp",
          "serve_tile_parallel", "serve_ckpt", "serve_host_slice", "train_s2d",
-         "train_tiramisu_packed", "train_tiramisu_conv_in")
+         "train_tiramisu_packed", "train_tiramisu_conv_in", "ladder_l0", "bench_all", "roofline",
+         "tiled_floor", "bn_sol")
 BN_PATHS = ("train_zf_unet", "train_tiramisu67", "train_albunet", "train_zoo",
             "train_cli_psp_net", "train_cli_albunet", "wider_resnet", "train_tiramisu_packed",
             "train_tiramisu_conv_in")
 # train_s2d's s2d runs: ZF_UNET's BatchNorms and UNetABN's InPlaceABNs
 ABN_PATHS = ("train", "train_unet_abn", "train_cli", "train_ab_cli", "train_nuclei",
              "train_cli_device_augs", "train_nuclei_device_augs", "train_dp", "train_dp_cli",
-             "train_tp", "train_s2d")
+             "train_tp", "train_s2d", "ladder_l0", "bench_all", "roofline", "bn_sol")
 KERNEL_PATHS = {
     "channel_sums": ABN_PATHS + BN_PATHS,
-    "abn_norm_act": ("serve", "serve_tile_parallel", "serve_ckpt", "serve_host_slice")
+    "abn_norm_act": ("serve", "serve_tile_parallel", "serve_ckpt", "serve_host_slice",
+                     "tiled_floor")
                     + ABN_PATHS + BN_PATHS,
     "abn_bwd": ABN_PATHS}
 OPTIONAL_PACKAGES = ("pandas", "tqdm", "tensorboardX", "cv2", "sklearn", "ninja", "matplotlib",
@@ -1375,7 +1404,7 @@ def phase_serve(state_dict):
          small_card_vs_cpu_max_prob_err=small_err, small_tolerance="atol 1e-4", ok=bool(ok))
     if not ok:
         raise AssertionError("serve checks failed")
-    return launches
+    return launches, seconds / N_IMAGES
 
 
 # train_parity tolerances. The step is ill-conditioned at random init: a few
@@ -3443,6 +3472,136 @@ def phase_serve_ckpt(state_dict, tmpdir: Path):
     return launches
 
 
+# The harness phases: bench_all's training depth and #5's images and
+# repeats; #5's s/image against serve's
+BENCH_ALL_STEPS = dict(warmup=3, steps=5)
+BENCH_ALL_TILED = dict(n_images=1, repeats=1)
+SERVE_TOL = 0.10
+# roofline's runs (config, normal space) and timed steps
+ROOFLINE_RUNS = (("linknet34-bce_jaccard-adam-512", False), ("zf_unet-512", False),
+                 ("zf_unet-512", True))
+ROOFLINE_STEPS = 10
+# ladder_l0's train steps per leg (its epoch, cut from the fixture's 55)
+LADDER_STEPS = 16
+
+
+def _times(per_step, n):
+    return {k: v * n for k, v in per_step.items()}
+
+
+def phase_ladder_l0(tmpdir: Path):
+    """Two 1-epoch L0 legs of the ladder (LADDER_STEPS train steps): the
+    same CSV bit for bit, kernels launched, the switches and precision
+    flags restored."""
+    flags = lambda: (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,  # noqa: E731
+                     torch.backends.cudnn.deterministic)
+    patched = lambda: (ab_ladder.dsb2018._heavy_geometric, train_cli.DataLoader,  # noqa: E731
+                       train_cli.get_model, abn_ops._on_device)
+    before, before_flags = patched(), flags()
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    result = ab_ladder.Ladder(tmpdir / "work", tmpdir / "out", epochs=1,
+                              steps=LADDER_STEPS).l0()
+    launches = kernels.launch_counts()
+    seconds = time.perf_counter() - t0
+    restored = patched() == before and flags() == before_flags
+    history = ab_ladder.read_csv(result["csv"])
+    ok = (result["same_bits"] and restored and all(launches.values())
+          and all(np.isfinite(v) for col in history.values() for v in col))
+    emit("ladder_l0", epochs=1, same_bits=result["same_bits"], restored=restored,
+         history=history, launches=launches, seconds=seconds, ok=bool(ok))
+    if not ok:
+        raise AssertionError("ladder_l0 checks failed")
+    return launches
+
+
+def phase_bench_all(smi: str, serve_s: float):
+    """bench --all through run_config at a cut depth: six JSON lines, each
+    config's launches, and #5's s/image against serve's."""
+    rows, counts, ok = [], Counter(), True
+    passes = -(-19 * 19 // (BATCH // 8))
+    for name in bench.CONFIG_NAMES:
+        tiled = name == bench.TILED_CONFIG
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        line = bench.run_config(name, device="cuda",
+                                **(BENCH_ALL_TILED if tiled else BENCH_ALL_STEPS))
+        launches = kernels.launch_counts()
+        if tiled:
+            expected = dict(NO_LAUNCHES, abn_norm_act=(1 + BENCH_ALL_TILED["n_images"]) * passes
+                            * EVAL_LAUNCHES["abn_norm_act"])
+        else:
+            expected = _times(MODEL_STEP_LAUNCHES[bench.BENCH_CONFIGS[name]["model_name"]],
+                              BENCH_ALL_STEPS["warmup"] + BENCH_ALL_STEPS["steps"])
+        line_ok = (launches == expected and np.isfinite(line["value"]) and line["value"] > 0
+                   and line["device"] == torch.cuda.get_device_name(0))
+        ok &= line_ok
+        counts.update(launches)
+        rows.append(dict(line, launches=launches, expected_launches=expected,
+                         seconds=time.perf_counter() - t0, ok=bool(line_ok)))
+        torch.cuda.empty_cache()
+    tiled_s = next(r["value"] for r in rows if r["metric"].startswith(bench.TILED_CONFIG))
+    rel = tiled_s / serve_s - 1
+    ok &= len(rows) == 6 and abs(rel) <= SERVE_TOL
+    emit("bench_all", card=smi, lines=rows, depth=dict(BENCH_ALL_STEPS, tiled=BENCH_ALL_TILED),
+         serve_s_per_image=serve_s, tiled_over_serve_minus_1=rel, tolerance=SERVE_TOL,
+         ok=bool(ok))
+    if not ok:
+        raise AssertionError("bench_all checks failed")
+    return dict(counts)
+
+
+def phase_roofline(smi: str):
+    """roofline.analyze on the ROOFLINE_RUNS: mfu_pct in (0, 100], the same
+    model GFLOP in both zf_unet forms, launches the layer count per step."""
+    rows, counts, ok = [], Counter(), True
+    for config, no_s2d in ROOFLINE_RUNS:
+        kernels.reset_launch_counts()
+        row = roofline.analyze(config, no_s2d=no_s2d, steps=ROOFLINE_STEPS, device="cuda")
+        launches = kernels.launch_counts()
+        expected = _times(MODEL_STEP_LAUNCHES[row["model"]], 2 + roofline.WARMUP + ROOFLINE_STEPS)
+        row_ok = 0 < row["mfu_pct"] <= 100 and launches == expected
+        ok &= row_ok
+        counts.update(launches)
+        rows.append(dict(row, launches=launches, expected_launches=expected, ok=bool(row_ok)))
+        torch.cuda.empty_cache()
+    zf = {r["form"]: r["gflop_per_step"] for r in rows if r["config"] == "zf_unet-512"}
+    same = zf["s2d"] == zf["normal"]
+    ok &= same
+    emit("roofline", card=smi, rows=rows, zf_unet_gflop_same_in_both_forms=same, ok=bool(ok))
+    if not ok:
+        raise AssertionError("roofline checks failed")
+    return dict(counts)
+
+
+def phase_tiled_floor(smi: str, serve_s: float):
+    """Config #5's floor on the card; it must not exceed serve's s/image."""
+    kernels.reset_launch_counts()
+    row = tiled_floor.analyze(device="cuda", measured_s_per_image=serve_s)
+    launches = kernels.launch_counts()
+    ok = (row["tiles"] == 361 and row["passes_needed"] == 2888
+          and 0 < row["floor_s_per_image"] <= serve_s and launches == EVAL_LAUNCHES)
+    emit("tiled_floor", **row, launches=launches, ok=bool(ok))
+    if not ok:
+        raise AssertionError("tiled_floor checks failed")
+    return launches
+
+
+def phase_bn_sol(smi: str):
+    """bn_sol on config #2: 48 sites, a B1/B3 time inside the step, a bound
+    below the step."""
+    kernels.reset_launch_counts()
+    row = bn_sol.analyze("linknet34-bce_jaccard-adam-512")
+    launches = kernels.launch_counts()
+    ok = (row["sites"] == sum(NORM_LAYERS["linknet34"]) and 0 < row["reduce_ms"] < row["step_ms"]
+          and row["sol_reduce_ms"] < row["reduce_ms"] and row["step_bound_ms"] < row["step_ms"]
+          and all(launches.values()))
+    emit("bn_sol", **row, launches=launches, ok=bool(ok))
+    if not ok:
+        raise AssertionError("bn_sol checks failed")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of segtpu_torch on one GPU")
     parser.add_argument("--ab-out", default=None,
@@ -3477,7 +3636,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         state_dict = phase_model_parity(Path(tmp))
-    counts = {"serve": phase_serve(state_dict)}
+    counts = {}
+    counts["serve"], serve_s = phase_serve(state_dict)
     phase_train_parity()
     counts["train"], step_ms = phase_train()
     torch.cuda.empty_cache()
@@ -3527,6 +3687,16 @@ def main(argv=None) -> int:
         counts["train_nuclei"] = phase_train_nuclei(card, Path(tmp), args.ab_out)
         counts["train_nuclei_device_augs"] = phase_nuclei_device_augs(
             Path(tmp) / "ab_nuclei" / "data" / "dsb2018", Path(tmp) / "nuclei_device_augs")
+    with tempfile.TemporaryDirectory() as tmp:
+        counts["ladder_l0"] = phase_ladder_l0(Path(tmp))
+    torch.cuda.empty_cache()
+    counts["bench_all"] = phase_bench_all(smi, serve_s)
+    torch.cuda.empty_cache()
+    counts["roofline"] = phase_roofline(smi)
+    counts["tiled_floor"] = phase_tiled_floor(smi, serve_s)
+    torch.cuda.empty_cache()
+    counts["bn_sol"] = phase_bn_sol(smi)
+    torch.cuda.empty_cache()
     counters = kernels.counter_buffers()
     if not counters or any(int(buf.count_nonzero()) for buf in counters):
         raise AssertionError("the B1/B3 counter buffers are not all zero after training: "

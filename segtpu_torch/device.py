@@ -20,3 +20,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "pass device='cpu' to run on the CPU")
     return dev
 
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` prints them (first card), for every number a
+    measurement keeps."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]

@@ -21,12 +21,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import numpy as np
 import torch
 
-from segtpu_torch.device import resolve_device
+from segtpu_torch.device import card_line, resolve_device
 
 SEED, BATCH, PATCH, SLOPE = 0, 16, 512, 0.01
 # Device clock cycles of the spin kernel ahead of each timed run (about
@@ -193,8 +192,7 @@ def main(argv=None) -> int:
     times = {k: {"ms_warm": cuda_ms(fn), "ms_cold": cuda_ms(fn, flush=flush)}
              for k, fn in calls.items()}
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = card_line()
     result = {"card": smi, "largest_shape": list(big), "dtype": "bfloat16",
               "layout": "channels_last", "times_ms": times,
               "timing": "device time (a spin kernel ahead of each run), medians of 20; "

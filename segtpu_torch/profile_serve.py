@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 from collections import defaultdict
 
@@ -26,6 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from segtpu_torch.augment import host as aug
 from segtpu_torch.data.inria import INRIA_MEAN, INRIA_STD
+from segtpu_torch.device import card_line
 from segtpu_torch.inference import predict_tiled
 from segtpu_torch.models import get_model
 from segtpu_torch.train.state import make_predict_step
@@ -100,8 +100,7 @@ def main(argv=None) -> int:
         by_group[group_of(e.name)] += ms
     busy_ms = union_ms((e.time_range.start, e.time_range.end) for e in kernels)
     span_ms = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = card_line()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     result = {
         "card": smi, "wall_s": wall_s, "device_busy_ms": busy_ms, "kernel_span_ms": span_ms,

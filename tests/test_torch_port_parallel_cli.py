@@ -186,7 +186,8 @@ _SHAPES_RUN = ["-m", "linknet34", "-d", "shapes", "-b", "2", "-p", "64", "-e", "
     ("train_ab_cli", _SHAPES_RUN), ("train_reg_cli", _SHAPES_RUN),
     ("bench", ["--config", "zf_unet-512"]),
     ("lr_finder", ["-m", "linknet34", "-d", "shapes", "-b", "2", "-p", "64"]),
-    ("ab_nuclei", ["--work", "work"])])
+    ("ab_nuclei", ["--work", "work"]), ("ab_ladder", ["--phase", "l0", "--work", "work"]),
+    ("roofline", ["--config", "zf_unet-512"]), ("tiled_floor", []), ("bn_sol", [])])
 def test_entry_points_resolve_the_device(module, argv, tmp_path, monkeypatch):
     """Without a GPU every entry point raises the port's device error, unless
     the caller asks for the CPU: no silent switch, the parallel flags too."""
