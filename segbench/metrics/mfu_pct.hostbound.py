@@ -1,0 +1,6 @@
+"""``mfu_pct.train`` of the host-bound training cells, which move
+``train_images_per_s.hostbound``."""
+
+from segbench.harness import metric_reader
+
+read = metric_reader("mfu_pct.train")
