@@ -17,6 +17,11 @@ producer thread of the stream) and uploads each chunk's tiles, in their
 upload dtype, in place of the image; the affine, the sweep and the merge
 are the device path's, so the probabilities are the same.
 
+The stream's stages are spans of :mod:`segtpu_torch.spans`, keyed by the
+item's key: ``segtpu_torch.stream.prepare`` (the producer thread),
+``.wait``, ``.upload``, ``.sweep``, ``.merge`` and ``.fetch`` (the
+consumer); :func:`predict_tiled` records the three of the device half.
+
 Tile-parallel (``grid`` with a data axis of N ranks; segtpu/inference.py:159-215,
 351-365): each chunk is rounded up to a multiple of N tiles and rank r runs
 the r-th N-th of every chunk; each rank folds its weighted tiles into the
@@ -34,6 +39,7 @@ from typing import Callable, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from segtpu_torch import spans
 from segtpu_torch.augment import (
     host as aug,
     pad_to_multiple,
@@ -171,46 +177,49 @@ def _upload_tiles(tiles: np.ndarray, affine, device: torch.device) -> torch.Tens
 
 
 def _dispatch(prep: _Prepared, predict_fn: Callable, tta: bool, threshold: Optional[float],
-              device: torch.device, grid: Optional[Grid] = None) -> torch.Tensor:
+              device: torch.device, grid: Optional[Grid] = None, key=None) -> torch.Tensor:
     """Device half: upload, chunked sweep (this rank's share of each chunk
     under a grid), merge and threshold. Returns the (H, W) mask on the
-    device without waiting for it."""
+    device without waiting for it. ``key``: the item's key on its spans."""
     n, rank = (grid.data_size, grid.data_rank) if grid is not None else (1, 0)
     patch = prep.slicer.tile_size
     share = prep.chunk // n
-    if prep.tiles is None:
-        image = _upload(prep.padded, prep.affine, device)
-        ys = torch.from_numpy(prep.ys).to(device)
-        xs = torch.from_numpy(prep.xs).to(device)
-    else:
-        # the tail repeats tile 0, as the device path repeats crop 0
-        index = np.arange(prep.n_chunks * prep.chunk)
-        index[prep.n_tiles:] = 0
-    preds = []
-    for i in range(prep.n_chunks):
-        sl = slice(i * prep.chunk + rank * share, i * prep.chunk + (rank + 1) * share)
+    with spans.span("segtpu_torch.stream.upload", key):
         if prep.tiles is None:
-            x = _gather_tiles(image, ys[sl], xs[sl], patch)
+            image = _upload(prep.padded, prep.affine, device)
+            ys = torch.from_numpy(prep.ys).to(device)
+            xs = torch.from_numpy(prep.xs).to(device)
         else:
-            x = _upload_tiles(prep.tiles[index[sl]], prep.affine, device)
-        if tta:
-            x = tta_d4_aug_batch(x)
-        y = predict_fn(x)
-        preds.append(tta_d4_deaug_batch(y) if tta else y)
-    preds = torch.cat(preds)
-    reduce_fn = None
-    if n > 1:
-        # this rank's tiles in their places, zeros in the others' (their
-        # weighted sums come through the all-reduce)
-        tail = preds.shape[1:]
-        full = preds.new_zeros((prep.n_chunks, n, share) + tail)
-        full[:, rank] = preds.view((prep.n_chunks, share) + tail)
-        preds = full.view((-1,) + tail)
-        reduce_fn = lambda acc: all_reduce_([acc], grid.data_group)  # noqa: E731
-    merged = prep.slicer.merge_device(preds[:prep.n_tiles], reduce_fn)[0]
-    if threshold is not None:
-        return (merged > threshold).to(torch.uint8) * 255
-    return merged
+            # the tail repeats tile 0, as the device path repeats crop 0
+            index = np.arange(prep.n_chunks * prep.chunk)
+            index[prep.n_tiles:] = 0
+    with spans.span("segtpu_torch.stream.sweep", key):
+        preds = []
+        for i in range(prep.n_chunks):
+            sl = slice(i * prep.chunk + rank * share, i * prep.chunk + (rank + 1) * share)
+            if prep.tiles is None:
+                x = _gather_tiles(image, ys[sl], xs[sl], patch)
+            else:
+                x = _upload_tiles(prep.tiles[index[sl]], prep.affine, device)
+            if tta:
+                x = tta_d4_aug_batch(x)
+            y = predict_fn(x)
+            preds.append(tta_d4_deaug_batch(y) if tta else y)
+        preds = torch.cat(preds)
+    with spans.span("segtpu_torch.stream.merge", key):
+        reduce_fn = None
+        if n > 1:
+            # this rank's tiles in their places, zeros in the others' (their
+            # weighted sums come through the all-reduce)
+            tail = preds.shape[1:]
+            full = preds.new_zeros((prep.n_chunks, n, share) + tail)
+            full[:, rank] = preds.view((prep.n_chunks, share) + tail)
+            preds = full.view((-1,) + tail)
+            reduce_fn = lambda acc: all_reduce_([acc], grid.data_group)  # noqa: E731
+        merged = prep.slicer.merge_device(preds[:prep.n_tiles], reduce_fn)[0]
+        if threshold is not None:
+            return (merged > threshold).to(torch.uint8) * 255
+        return merged
 
 
 def _ranks(grid: Optional[Grid]) -> int:
@@ -270,27 +279,33 @@ def predict_tiled_stream(items: Iterable[Tuple[object, Callable[[], np.ndarray]]
     def producer():
         try:
             for key, load_fn in items:
-                prep = _Prepared(load_fn(), test_transform, patch_size, batch_size,
-                                 tta, weight, _ranks(grid), slice_on_device)
+                with spans.span("segtpu_torch.stream.prepare", key):
+                    prep = _Prepared(load_fn(), test_transform, patch_size, batch_size,
+                                     tta, weight, _ranks(grid), slice_on_device)
                 if not put((key, prep, None)):
                     return
         except BaseException as e:  # handed to the consumer, which raises it
             put((None, None, e))
+
+    def fetch(k, m):
+        with spans.span("segtpu_torch.stream.fetch", k):
+            return k, m.cpu().numpy()
 
     worker = threading.Thread(target=producer, daemon=True)
     worker.start()
     inflight = []
     try:
         for _ in range(len(items)):
-            key, prep, error = prepped.get()
+            with spans.span("segtpu_torch.stream.wait") as waited:
+                key, prep, error = prepped.get()
+                waited.key = key
             if error is not None:
                 raise error
-            inflight.append((key, _dispatch(prep, predict_fn, tta, threshold, dev, grid)))
+            inflight.append((key, _dispatch(prep, predict_fn, tta, threshold, dev, grid, key)))
             if len(inflight) > depth:
-                k, m = inflight.pop(0)
-                yield k, m.cpu().numpy()
+                yield fetch(*inflight.pop(0))
         for k, m in inflight:
-            yield k, m.cpu().numpy()
+            yield fetch(k, m)
     finally:
         stop.set()
         worker.join(timeout=10.0)

@@ -17,6 +17,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from segtpu_torch import spans
 from segtpu_torch.data.pipeline import prefetch_to_device
 from segtpu_torch.device import DeviceLike
 from segtpu_torch.ops.meters import AverageMeter, PRCurveMeter
@@ -81,7 +82,12 @@ def run_train_epoch(train_step, loader, lr: float, epoch: int, metric_names, wri
     ``loader``, batches staged on ``device`` (CUDA unless the caller passes
     the CPU). Returns ``(loss_meter, {metric: meter})``."""
     batch_logs, last_batch = [], None
-    for batch in prefetch_to_device(loader, device):
+    batches = prefetch_to_device(loader, device)
+    while True:
+        with spans.span("segtpu_torch.loader.wait"):
+            batch = next(batches, None)
+        if batch is None:
+            break
         batch_logs.append(train_step(batch[0], batch[1], lr))
         last_batch = batch
 

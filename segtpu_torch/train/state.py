@@ -13,7 +13,9 @@ bfloat16 autocast. The model returns fp32 logits (float64 from a float64
 model), and the loss and metrics are taken on them outside autocast.
 
 Each step function carries its model as ``step.model``, for the epoch
-loop's image and histogram logging.
+loop's image and histogram logging. The train step and its phases are
+spans of :mod:`segtpu_torch.spans` (``segtpu_torch.step``, keyed by the
+step's index, and ``segtpu_torch.step.<phase>`` inside it).
 
 ``augment_fn`` (segtpu's device augmentations, segtpu/train/state.py:96-98)
 runs on the raw batch in fp32, before autocast and the model. Its draws come
@@ -48,6 +50,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from segtpu_torch import spans
 from segtpu_torch.ops.metrics import pr_curve_counts
 from segtpu_torch.parallel import Grid, all_reduce_gradients
 from segtpu_torch.train.optim import set_learning_rate
@@ -163,42 +166,50 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn:
     generators: Dict[torch.device, torch.Generator] = {}
 
     def train_step(x: torch.Tensor, y: torch.Tensor, lr: float) -> Logs:
-        model.train()
         step = train_step.step
-        if augment_fn is not None:
-            g = generators.get(x.device)
-            if g is None:
-                g = generators[x.device] = torch.Generator(device=x.device)
-            g.manual_seed(augment_seed(seed, step, grid.data_rank if group is not None else None))
-            x, y = augment_fn(g, x.float(), y.float())
-        train_step.step += 1
-        x = _model_input(x)
-        set_learning_rate(optimizer, lr)
-        optimizer.zero_grad(set_to_none=True)
-        # the forward, and the backward that may recompute it (remat), draw
-        # their dropout masks from the step's key
-        with seeded_device_generator(x.device, dropout_seed(seed, step)):
-            with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
-                logits = model(x)
-            loss = loss_fn(logits, y)
-            total = loss * (x.shape[0] * grid.data_size)
-            if param_penalty is not None:
-                total = total + param_penalty(model) / grid.data_size
-            total.backward()
-        if group is not None:
-            all_reduce_gradients(model.parameters(), group)
-        for p in frozen:
-            if p.grad is not None:
-                p.grad.zero_()
-        absmax = grad_absmax(p.grad for p in model.parameters())
-        if grid.model_group is not None:
-            dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=grid.model_group)
-        logs = {"loss": loss.detach(), "grad_absmax": absmax}
-        optimizer.step()
-        with torch.no_grad():
-            for name, fn in metrics.items():
-                logs[name] = fn(logits.detach(), y)
-        return logs
+        with spans.span("segtpu_torch.step", step, device=True):
+            model.train()
+            if augment_fn is not None:
+                with spans.span("segtpu_torch.step.augment", step):
+                    g = generators.get(x.device)
+                    if g is None:
+                        g = generators[x.device] = torch.Generator(device=x.device)
+                    g.manual_seed(augment_seed(seed, step,
+                                               grid.data_rank if group is not None else None))
+                    x, y = augment_fn(g, x.float(), y.float())
+            train_step.step += 1
+            x = _model_input(x)
+            set_learning_rate(optimizer, lr)
+            optimizer.zero_grad(set_to_none=True)
+            # the forward, and the backward that may recompute it (remat), draw
+            # their dropout masks from the step's key
+            with seeded_device_generator(x.device, dropout_seed(seed, step)):
+                with spans.span("segtpu_torch.step.forward", step):
+                    with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
+                        logits = model(x)
+                with spans.span("segtpu_torch.step.loss", step):
+                    loss = loss_fn(logits, y)
+                with spans.span("segtpu_torch.step.backward", step):
+                    total = loss * (x.shape[0] * grid.data_size)
+                    if param_penalty is not None:
+                        total = total + param_penalty(model) / grid.data_size
+                    total.backward()
+            if group is not None:
+                with spans.span("segtpu_torch.step.reduce", step):
+                    all_reduce_gradients(model.parameters(), group)
+            with spans.span("segtpu_torch.step.optimizer", step):
+                for p in frozen:
+                    if p.grad is not None:
+                        p.grad.zero_()
+                absmax = grad_absmax(p.grad for p in model.parameters())
+                if grid.model_group is not None:
+                    dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=grid.model_group)
+                optimizer.step()
+            logs = {"loss": loss.detach(), "grad_absmax": absmax}
+            with spans.span("segtpu_torch.step.metrics", step), torch.no_grad():
+                for name, fn in metrics.items():
+                    logs[name] = fn(logits.detach(), y)
+            return logs
 
     train_step.model = model
     train_step.step = 0

@@ -38,6 +38,7 @@ import torch
 
 import torch.distributed as dist
 
+from segtpu_torch import spans
 from segtpu_torch.augment.device import get_device_pipelines
 from segtpu_torch.compat.encoder_weights import install_encoder_weights
 from segtpu_torch.data import get_dataset
@@ -386,11 +387,14 @@ def main(argv=None, *, param_penalty: Optional[Callable] = None,
                 activities.append(ProfilerActivity.CUDA)
             profiler = profile(activities=activities)
             profiler.start()
+            # the program's spans on the trace's timeline
+            spans.enable()
         train_loss, train_scores = run_train_epoch(
             train_step, trainloader, lr, epoch, metric_names, writer=writer, device=device,
             log_images=not args.light_logging, log_histograms=not args.light_logging)
         if profiler is not None:
             profiler.stop()
+            spans.disable()
             os.makedirs(args.profile_dir, exist_ok=True)
             trace = os.path.join(args.profile_dir, f"{args.experiment}_epoch{epoch}.json")
             profiler.export_chrome_trace(trace)

@@ -12,6 +12,7 @@ numpy; weights come from ``tests/torch_port_util.py``.
 """
 
 import copy
+import json
 import math
 import os
 import shutil
@@ -40,7 +41,7 @@ from segtpu.train.state import make_eval_step as jax_make_eval_step
 from segtpu.train.state import make_train_step as jax_make_train_step
 from segtpu.utils import make_grid as jax_make_grid
 
-from segtpu_torch import regularization, train_cli, train_reg_cli
+from segtpu_torch import regularization, spans, train_cli, train_reg_cli
 from segtpu_torch.augment import host
 from segtpu_torch.compat.jax_params import state_dict_from_jax
 from segtpu_torch.data import get_dataset, pipeline, shapes
@@ -858,6 +859,11 @@ def test_cli_profile_dir_writes_a_trace(tmp_path):
     train_cli.main(_cli_args(tmp_path, "--profile-dir", str(tmp_path / "prof")))
     traces = list((tmp_path / "prof").glob("*.json"))
     assert len(traces) == 1 and traces[0].stat().st_size > 1000
+    # the program's spans of the profiled epoch, and the recorder off after it
+    names = {e.get("name") for e in json.loads(traces[0].read_text())["traceEvents"]}
+    assert {"segtpu_torch.step", "segtpu_torch.step.backward",
+            "segtpu_torch.loader.wait"} <= names
+    assert spans.drain() == [] and spans.span("x") is spans.span("y")
 
 
 def _event_tags(run_dir):
