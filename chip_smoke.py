@@ -71,6 +71,15 @@ Phases, one JSON line each; any failure exits non-zero:
                the parity steps in fp32; each zoo model's largest and
                psp_net's and duc's per-step calls timed beside
                F.batch_norm, reported and not gated
+  kernel_bn_dx BNTrain's dx pass against bn_dx_plain (every element within
+               1 ulp in bf16 and fp32, and the share of equal bits; B2's
+               edge cases in every layout, then every BatchNorm shape of
+               tiramisu67's and LinkNet34's steps in bf16 and fp32
+               channels_last), its time cold in L2 at each of those shapes
+               beside its bound (6 bytes per bf16 element), the plain chain
+               and torch.batch_norm_backward_elemt (not gated), and each
+               step modelled (60 and 36 calls); fails where it is not
+               faster than the plain chain at a shape
   kernel_s2d   B1 (both forms), B2 (none, leaky_relu) and B3 against their
                plain versions at the normalisation inputs of the s2d forms'
                steps (grouped statistics: zf_unet and UNetABN at batch 16,
@@ -94,7 +103,7 @@ Phases, one JSON line each; any failure exits non-zero:
                512, bf16 autocast, bce_jaccard, Adam lr 1e-3, one fixed
                DeviceShapes batch, 3 warm steps then 20 timed ones; images/s,
                ms/step, peak memory, first and last loss, and the launches of
-               B1, B2 and B3 per step against the layer count
+               B1, B2, B3 and the dx pass per step against the layer count
   train_dp     data parallel, two processes on the one card over gloo (NCCL
                refuses two ranks on one device): LinkNet34 at config #2's
                global batch 16, patch 512, 8 samples per rank, sync
@@ -389,19 +398,22 @@ def step_launches(n_bn: int, n_abn: int) -> dict:
     """Launches per training step of a model with ``n_bn`` BatchNorm and
     ``n_abn`` InPlaceABN layers: B1 for each BatchNorm forward and backward
     and each InPlaceABN forward; B2 for the affine of each BatchNorm and each
-    InPlaceABN; B3 for each InPlaceABN backward."""
-    return {"channel_sums": 2 * n_bn + n_abn, "abn_norm_act": n_bn + n_abn, "abn_bwd": n_abn}
+    InPlaceABN; B3 for each InPlaceABN backward; the dx pass for each
+    BatchNorm backward."""
+    return {"channel_sums": 2 * n_bn + n_abn, "abn_norm_act": n_bn + n_abn, "abn_bwd": n_abn,
+            "bn_dx": n_bn}
 
 
-# LinkNet34 84, 48, 12; ZF_UNET 44, 22, 0; UNet 36, 18, 0; UNetABN 18, 18, 18;
-# tiramisu67 120, 60, 0; tiramisu57 98, 49, 0; AlbuNet 72, 36, 0; UNet11 0, 0, 0
+# LinkNet34 84, 48, 12, 36; ZF_UNET 44, 22, 0, 22; UNet 36, 18, 0, 18; UNetABN
+# 18, 18, 18, 0; tiramisu67 120, 60, 0, 60; tiramisu57 98, 49, 0, 49; AlbuNet
+# 72, 36, 0, 36; UNet11 0, 0, 0, 0
 MODEL_STEP_LAUNCHES = {name: step_launches(*n) for name, n in NORM_LAYERS.items()}
 STEP_LAUNCHES = MODEL_STEP_LAUNCHES["linknet34"]
 # Launches per eval-mode pass: B2 in the 12 InPlaceABN layers; eval-mode
 # BatchNorm is F.batch_norm over the running statistics and runs no kernel of
 # this repo, and nothing is reduced.
-EVAL_LAUNCHES = {"channel_sums": 0, "abn_norm_act": 12, "abn_bwd": 0}
-NO_LAUNCHES = {"channel_sums": 0, "abn_norm_act": 0, "abn_bwd": 0}
+EVAL_LAUNCHES = {"channel_sums": 0, "abn_norm_act": 12, "abn_bwd": 0, "bn_dx": 0}
+NO_LAUNCHES = {"channel_sums": 0, "abn_norm_act": 0, "abn_bwd": 0, "bn_dx": 0}
 # The models whose training-step shapes the kernel phases check and time, at
 # the batch of their step. tiramisu57 grows by 12 channels, so most of its
 # B1 calls take the kernel's scalar loads (vec 1).
@@ -452,7 +464,8 @@ KERNEL_PATHS = {
     "abn_norm_act": ("serve", "serve_tile_parallel", "serve_ckpt", "serve_host_slice",
                      "tiled_floor")
                     + ABN_PATHS + BN_PATHS,
-    "abn_bwd": ABN_PATHS}
+    "abn_bwd": ABN_PATHS,
+    "bn_dx": ABN_PATHS + BN_PATHS}
 OPTIONAL_PACKAGES = ("pandas", "tqdm", "tensorboardX", "cv2", "sklearn", "ninja", "matplotlib",
                      "msgpack")
 # Channel sums of fp32 terms, added in two orders: |err| <= RTOL_SUM * sum |term|.
@@ -1289,6 +1302,145 @@ def phase_kernel_b2(card: str, norm_shapes, fp32_shapes, zoo_shapes):
                  zoo_largest_by_model=zoo_largest_by_model, per_step=per_step,
                  batch_norm_affine=library, c_sweep=c_sweep),
             max(max_err.values()))
+
+
+# BNTrain's dx pass: the models whose training steps chip_smoke times it at
+# (60 and 36 calls a step: tiramisu67's BatchNorms, LinkNet34's encoder's).
+BN_DX_MODELS = ("tiramisu67", "linknet34")
+# Its gate against bn_dx_plain: every element within BN_DX_ULPS units in the
+# last place of the output type (bf16 and fp32; the two compute the same
+# fp32 operations, so both are expected to give the same bits).
+BN_DX_ULPS = 1
+
+
+def ulps_apart(got, want):
+    """Units in the last place of their dtype (bf16 or fp32) between two
+    tensors of one shape, elementwise, as int64: the distance between their
+    bit patterns read as sign-magnitude integers, so -0 and +0 are 0 apart."""
+    bits, mask = ((torch.int16, 0x7FFF) if got.dtype == torch.bfloat16
+                  else (torch.int32, 0x7FFFFFFF))
+
+    def ordered(t):
+        b = t.contiguous().view(bits).long()
+        return torch.where(b < 0, -(b & mask), b)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+def bn_dx_inputs(shape, dtype, layout, g):
+    """The arguments of one dx call, ``(g, x, w, mean, b2, a)``, made as
+    BNTrain.backward makes them from seeded gamma, rstd, mean, sum g and
+    sum g*(x - mean), and those of torch.batch_norm_backward_elemt for the
+    same dx: ``(g, x, mean, invstd, weight, sum_dy, sum_dy_xmu, count)``."""
+    grad = cuda_input(shape, dtype, layout, g, 0.0, 1.0)
+    x = cuda_input(shape, dtype, layout, g)
+    c = shape[1]
+    n = int(np.prod(shape)) // c
+    gamma = torch.rand(c, device="cuda", generator=g) + 0.5
+    rstd = torch.rand(c, device="cuda", generator=g) + 0.25
+    mean = torch.randn(c, device="cuda", generator=g) * 0.3
+    sum_dy = torch.randn(c, device="cuda", generator=g) * n ** 0.5
+    sum_dy_xmu = torch.randn(c, device="cuda", generator=g) * 2 * n ** 0.5
+    w = gamma * rstd
+    a = w * sum_dy / n
+    b2 = w * rstd * (sum_dy_xmu * rstd) / n
+    count = torch.tensor([n], dtype=torch.int32, device="cuda")
+    return (grad, x, w, mean, b2, a), (grad, x, mean, rstd, gamma, sum_dy, sum_dy_xmu, count)
+
+
+def _bn_dx_case(args):
+    """The kernel against bn_dx_plain at one call: ``(max ulps, elements
+    exactly equal, elements)``; raises beyond BN_DX_ULPS or where the output
+    is not x's dtype, shape and strides."""
+    x = args[1]
+    got = kernels.bn_dx_cuda(*args)
+    want = abn_ops.bn_dx_plain(*args)
+    torch.cuda.synchronize()
+    if got.shape != x.shape or got.dtype != x.dtype or got.stride() != x.stride():
+        raise AssertionError(f"bn_dx output {got.shape} {got.dtype} {got.stride()} "
+                             f"vs input {x.shape} {x.dtype} {x.stride()}")
+    ulps = ulps_apart(got, want)
+    worst = int(ulps.max())
+    if worst > BN_DX_ULPS or not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"bn_dx disagrees with its plain version: {x.dtype} "
+                             f"{tuple(x.shape)} {x.stride()}: {worst} ulps")
+    return worst, int((ulps == 0).sum()), ulps.numel()
+
+
+def phase_kernel_bn_dx(card: str, norm_shapes):
+    """BNTrain's dx pass against bn_dx_plain: B2's edge cases in every
+    layout, then every BatchNorm shape of BN_DX_MODELS' steps, in bf16 and
+    fp32 channels_last; then its time at each of those shapes, cold in L2,
+    beside its bound (6 bytes per bf16 element), the plain chain and
+    torch.batch_norm_backward_elemt (the library's dx of SyncBatchNorm, given
+    the same BatchNorm; reported, not gated), and each model's step modelled
+    as kernel_b1's. Fails where the kernel is not faster than the plain
+    chain at a timed shape."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    stats = {torch.float32: [0, 0, 0], torch.bfloat16: [0, 0, 0]}
+
+    def check(shape, dtype, layout):
+        worst, exact, n = _bn_dx_case(bn_dx_inputs(shape, dtype, layout, g)[0])
+        st = stats[dtype]
+        st[0], st[1], st[2] = max(st[0], worst), st[1] + exact, st[2] + n
+
+    edge = [(s, lay) for s in B2_EDGE_SHAPES
+            for lay in (B2_EDGE_LAYOUTS if len(s) == 4 else ("nchw", "unaligned"))]
+    step_shapes = sorted({s for m in BN_DX_MODELS for s in norm_shapes[m]["bn"]})
+    cases = edge + [(s, "channels_last") for s in step_shapes]
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, layout in cases:
+            check(shape, dtype, layout)
+    torch.cuda.empty_cache()
+
+    # the library's call against the plain version at the largest shape (not gated)
+    big = _largest(step_shapes)
+    args, lib_args = bn_dx_inputs(big, torch.bfloat16, "channels_last", g)
+    lib_ulps = ulps_apart(torch.batch_norm_backward_elemt(*lib_args), abn_ops.bn_dx_plain(*args))
+    library_check = dict(shape=list(big), max_ulps=int(lib_ulps.max()),
+                         exact_share=float((lib_ulps == 0).float().mean()))
+    del args, lib_args, lib_ulps
+    torch.cuda.empty_cache()
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    timed = time_shapes(
+        card, {(s, "bn") for s in step_shapes},
+        lambda shape, form: bn_dx_inputs(shape, torch.bfloat16, "channels_last", g),
+        lambda inputs, form: kernels.bn_dx_cuda(*inputs[0]),
+        lambda inputs, form: abn_ops.bn_dx_plain(*inputs[0]),
+        lambda inputs, form: lambda: torch.batch_norm_backward_elemt(*inputs[1]),
+        lambda n, c, form: 3 * n * 2 + 4 * 4 * c, lambda n, form: 5 * n, flush)
+    del flush
+    slower = {"x".join(map(str, s)): r["ms"] / r["plain_ms"] for (s, _), r in timed.items()
+              if r["ms"] >= r["plain_ms"]}
+    if slower:
+        raise AssertionError(f"kernel_bn_dx: the kernel is not faster than the plain chain at "
+                             f"{slower}")
+    per_step, per_step_shapes = {}, {}
+    for model in BN_DX_MODELS:
+        calls = Counter((s, "bn") for s in norm_shapes[model]["bn"])
+        per_step[model], per_step_shapes[model] = step_sum(timed, calls)
+        if per_step[model]["calls_modelled"] != MODEL_STEP_LAUNCHES[model]["bn_dx"]:
+            raise AssertionError(f"kernel_bn_dx: {per_step[model]['calls_modelled']} calls per "
+                                 f"{model} step, expected {MODEL_STEP_LAUNCHES[model]['bn_dx']}")
+    largest = dict(timed[(big, "bn")])
+    largest["bound_share"] = largest["bound_ms"] / largest["ms"]
+    largest_by_model = {m: dict(timed[(_largest(norm_shapes[m]["bn"]), "bn")]) for m in BN_DX_MODELS}
+    for row in largest_by_model.values():
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    bw, _, rate_src = card_rates(card)
+    emit("kernel_bn_dx", cases=2 * len(cases), step_shapes=len(step_shapes),
+         gate=f"every element within {BN_DX_ULPS} ulp of bn_dx_plain (bf16 and fp32)",
+         max_ulps_bf16=stats[torch.bfloat16][0], max_ulps_fp32=stats[torch.float32][0],
+         exact_share_bf16=stats[torch.bfloat16][1] / stats[torch.bfloat16][2],
+         exact_share_fp32=stats[torch.float32][1] / stats[torch.float32][2],
+         elements_checked={"bf16": stats[torch.bfloat16][2], "fp32": stats[torch.float32][2]},
+         rate_source=rate_src, hbm_bytes_per_s=bw, largest=largest,
+         largest_by_model=largest_by_model, library="torch.batch_norm_backward_elemt",
+         library_check=library_check, per_step=per_step, per_step_shapes=per_step_shapes)
+    return (dict(largest, largest_by_model=largest_by_model, per_step=per_step,
+                 library_check=library_check),
+            max(stats[torch.bfloat16][0], stats[torch.float32][0]))
 
 
 def seeded_model(device, state_dict=None, name="linknet34"):
@@ -2740,9 +2892,9 @@ def phase_cli_profile(tmpdir: Path):
 
 
 def phase_one_launch(norm_shapes):
-    """One call of B1 (both forms), of B2 and of B3 runs exactly one device
-    kernel, at the largest and the smallest shape of the step, by
-    torch.profiler.
+    """One call of B1 (both forms), of B2, of B3 and of the dx pass runs
+    exactly one device kernel, at the largest and the smallest shape of the
+    step, by torch.profiler.
     Last of the phases that use the card: a profiler session leaves CUPTI
     attached to the process, which slows every later launch."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 50)
@@ -2765,6 +2917,10 @@ def phase_one_launch(norm_shapes):
         shift = torch.randn(shape[1], device="cuda", generator=g)
         fns[f"abn_norm_act {label}"] = (lambda x=x, scale=scale, shift=shift:
                                         kernels.abn_norm_act_cuda(x, scale, shift, "none", SLOPE))
+    bn_unique = sorted(_unique(norm_shapes, ("bn",)), key=lambda s: int(np.prod(s)))
+    for label, shape in (("smallest", bn_unique[0]), ("largest", bn_unique[-1])):
+        args = bn_dx_inputs(shape, torch.bfloat16, "channels_last", g)[0]
+        fns[f"bn_dx {label}"] = lambda args=args: kernels.bn_dx_cuda(*args)
     names = check_one_launch("kernel", fns)
     emit("one_launch", device_kernels_per_call={k: 1 for k in names}, kernels=names, ok=True)
 
@@ -2811,8 +2967,9 @@ A18_VARIANTS = (("concat", {}), ("packed", dict(packed=True)),
 A18_STEPS = 3
 # tiramisu67 under remat_policy="conv_in": the BatchNorms of its 55 dense
 # layers run their forward again in the backward (B1 3 and B2 2 per layer),
-# its 5 transitions' as without it
-CONV_IN_LAUNCHES = {"channel_sums": 55 * 3 + 5 * 2, "abn_norm_act": 55 * 2 + 5, "abn_bwd": 0}
+# its 5 transitions' as without it; each BatchNorm's backward runs once
+CONV_IN_LAUNCHES = {"channel_sums": 55 * 3 + 5 * 2, "abn_norm_act": 55 * 2 + 5, "abn_bwd": 0,
+                    "bn_dx": 55 + 5}
 # BatchNorm inputs that packed growth copies per forward: each dense layer's
 # strided prefix of its block's buffer (B1 and B2 take dense inputs only)
 PACKED_COPIES = 55
@@ -3630,6 +3787,8 @@ def main(argv=None) -> int:
     b3, b3_err = phase_kernel_b3(card, norm_shapes, nuclei_shapes)
     b2, b2_err = phase_kernel_b2(card, norm_shapes, fp32_shapes, zoo_shapes)
     torch.cuda.empty_cache()
+    bn_dx, bn_dx_ulps = phase_kernel_bn_dx(card, norm_shapes)
+    torch.cuda.empty_cache()
     s2d_kernels = phase_kernel_s2d(card, s2d_shapes, dict(norm_shapes, **zoo_shapes),
                                    set(_unique(norm_shapes, ("bn", "abn")))
                                    | set(_unique(zoo_shapes, ("bn",))))
@@ -3736,6 +3895,14 @@ def main(argv=None) -> int:
                      per_step=_per_step_entry(b3["per_step"]),
                      s2d=s2d_kernels["abn_bwd"],
                      launches_by_path=by_path["abn_bwd"]),
+        kernel_entry("-", "bn_dx", "none (segtpu leaves BatchNorm's dx to XLA's fusions)",
+                     sum(by_path["bn_dx"].values()), None, bn_dx, max_ulps=bn_dx_ulps,
+                     bound_share=bn_dx["bound_share"],
+                     library="torch.batch_norm_backward_elemt",
+                     library_check=bn_dx["library_check"],
+                     largest_by_model=bn_dx["largest_by_model"],
+                     per_step=_per_step_entry(bn_dx["per_step"]),
+                     launches_by_path=by_path["bn_dx"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -43,10 +43,10 @@ Phases:
 Bisect legs (``--bisect``, L0 only; diagnostics, never a fallback):
 ``tf32`` runs with TF32 on in cuDNN and matmuls (segtpu's "matmul precision
 highest" leg, turned around: the port's legs already run at full fp32);
-``plain-norm`` runs the plain PyTorch versions of B1/B2/B3 instead of the
-kernels for that leg (segtpu's "BN impl=autodiff"). segtpu's deconv-backward
-leg has no counterpart: the port's transposed convolutions take torch's own
-backward.
+``plain-norm`` runs the plain PyTorch versions of B1/B2/B3 and the dx pass
+instead of the kernels for that leg (segtpu's "BN impl=autodiff"). segtpu's
+deconv-backward leg has no counterpart: the port's transposed convolutions
+take torch's own backward.
 
 The rule (:func:`verdict`). The port's offset against segtpu is segtpu's own
 plateau-escape timing, and not a fault of the port, if both hold:
@@ -118,8 +118,8 @@ def _plain(name, x, cuda_fn, plain_fn, *args):
 def ladder_switches(augment: bool = False, shuffle: bool = False, dropout: bool = True,
                     plain_norm: bool = False):
     """The ladder's switches on the train CLI (module docstring), undone on
-    exit. ``plain_norm``: B1/B2/B3 run their plain PyTorch versions on any
-    device."""
+    exit. ``plain_norm``: B1/B2/B3 and the dx pass run their plain PyTorch
+    versions on any device."""
     saved = (dsb2018._heavy_geometric, train_cli.DataLoader, train_cli.get_model,
              abn_ops._on_device)
     try:

@@ -1,7 +1,7 @@
 """Fused Activated BatchNorm and training-mode BatchNorm (counterpart of
 segtpu/ops/abn.py).
 
-Three kernels, each with a plain PyTorch version beside it here and a CUDA
+Four kernels, each with a plain PyTorch version beside it here and a CUDA
 wrapper in :mod:`segtpu_torch.ops.kernels`. The dispatchers send a CUDA tensor
 to the kernel (which launches or raises) and a CPU tensor to the plain
 version, which repeats the kernel's fp32 arithmetic:
@@ -9,6 +9,8 @@ version, which repeats the kernel's fp32 arithmetic:
   B1 :func:`channel_sums`   per-channel fp32 ``(sum a, sum a*b)``
   B2 :func:`abn_norm_act`   ``act(x * scale + shift)`` per channel
   B3 :func:`abn_bwd_sums`   the from-output ABN backward sums ``(edz, eydz)``
+     :func:`bn_dx`          BNTrain's ``dx = g*w - (x - mean)*b2 - a`` per
+                            channel (no TPU kernel: segtpu leaves it to XLA)
 
 Inference folds the running statistics into one per-channel affine,
 ``scale = gamma * rsqrt(var + eps)`` and ``shift = beta - mean * scale``
@@ -17,14 +19,16 @@ Inference folds the running statistics into one per-channel affine,
   :class:`BNTrain`        BatchNorm with batch statistics (segtpu ``bn_train``):
                           B1 statistics, then the affine through B2 with
                           activation ``"none"``; backward B1 in its pair form
-                          on ``(g, x)``, then the ``dx`` expression.
+                          on ``(g, x)``, then the ``dx`` pass :func:`bn_dx`.
   :class:`FusedABNTrain`  InPlaceABN (segtpu ``_fused_abn_train``): B1
                           statistics, then B2; it saves the output ``z`` and
                           never the input ``x``; backward B3, then ``dx``
                           rebuilt from ``z``.
 
-The ``dx`` passes are plain PyTorch elementwise code in fp32 (segtpu leaves
-them to XLA's fusions, outside any Pallas kernel). On the CPU a float64
+The ``dx`` passes are left to XLA's fusions in segtpu, outside any Pallas
+kernel. Here BNTrain's is one kernel on CUDA (:func:`bn_dx`: reads ``g`` and
+``x`` once, writes ``dx`` once) and plain PyTorch fp32 code on the CPU;
+FusedABNTrain's is plain PyTorch on every device. On the CPU a float64
 input stays float64 throughout, so the same code gives a float64 reference
 run. Each Function also returns the batch ``(mean, var)``, so a layer
 computes its sums once and updates its running statistics from them.
@@ -286,6 +290,30 @@ def abn_bwd_sums(z: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor, beta: to
 
 
 # ---------------------------------------------------------------------------
+# BNTrain's dx pass
+# ---------------------------------------------------------------------------
+
+def bn_dx_plain(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor,
+                b2: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """``dx = g * w - (x - mean) * b2 - a`` per channel (dim 1) in the
+    vectors' type (fp32, or float64 in a CPU reference run), rounded once
+    to ``x``'s dtype. ``g``: ``x``'s dtype and layout; ``w``, ``mean``,
+    ``b2``, ``a``: ``[C]``. The dx kernel's reference; the CPU path of the
+    port."""
+    view, acc = _channel_view(x), w.dtype
+    dx = (g.to(acc) * w.view(view) - (x.to(acc) - mean.view(view)) * b2.view(view)
+          - a.view(view))
+    return dx.to(x.dtype)
+
+
+def bn_dx(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor,
+          b2: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Dispatch by ``g.device``: the dx kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    return _on_device("bn_dx", g, kernels.bn_dx_cuda, bn_dx_plain, x, w, mean, b2, a)
+
+
+# ---------------------------------------------------------------------------
 # Training-mode autograd Functions
 # ---------------------------------------------------------------------------
 
@@ -322,7 +350,8 @@ class BNTrain(torch.autograd.Function):
     gradient. Forward: B1, then B2 with ``scale = gamma * rstd`` and
     ``shift = beta - mean * scale``. Backward (segtpu abn.py:250-289):
     ``(sum g, sum g*x)`` from B1's pair form, then
-    ``dx = w*g - w*d_beta/N - w*rstd*(x - mean)*d_gamma/N`` elementwise.
+    ``dx = w*g - w*d_beta/N - w*rstd*(x - mean)*d_gamma/N`` in one pass
+    (:func:`bn_dx`).
     ``parts``: grouped s2d statistics (module docstring); the pair sums are
     summed per true channel and N counts the group."""
 
@@ -360,12 +389,8 @@ class BNTrain(torch.autograd.Function):
             count = count * 4
         a = _expand_parts(w * all_bias / count, parts)
         b2 = _expand_parts(w * rstd * all_weight / count, parts)
-        view, acc = _channel_view(x), rstd.dtype
-        dx = (g.to(acc) * _expand_parts(w, parts).view(view)
-              - (x.to(acc) - _expand_parts(mean, parts).view(view)) * b2.view(view)
-              - a.view(view))
-        return (dx.to(x.dtype), d_weight.to(weight.dtype), d_bias.to(weight.dtype), None, None,
-                None)
+        dx = bn_dx(g, x, _expand_parts(w, parts), _expand_parts(mean, parts), b2, a)
+        return dx, d_weight.to(weight.dtype), d_bias.to(weight.dtype), None, None, None
 
 
 class FusedABNTrain(torch.autograd.Function):

@@ -16,11 +16,14 @@ Each wrapper counts its launches in a plain integer attribute
 launched, so a run can show that its main path went through the kernel.
 
 Kernels: B1 ``channel_sums`` (per-channel fp32 (sum a, sum a*b)), B2
-``abn_norm_act`` (per-channel affine + activation) and B3 ``abn_bwd``
-(from-output ABN backward sums). Each takes a launch plan computed here and
+``abn_norm_act`` (per-channel affine + activation), B3 ``abn_bwd``
+(from-output ABN backward sums), and ``bn_dx``, training-mode BatchNorm's
+backward ``dx`` pass (``g * w - (x - mean) * b2 - a`` per channel; it
+replaces no TPU kernel). Each takes a launch plan computed here and
 passed to its C launcher as a packed int64 array, which the launcher checks
 and refuses with ``cudaErrorInvalidValue``; the wrapper raises on any
-non-zero return. B2's plan (:func:`norm_act_plan`) and B1/B3's
+non-zero return. B2's plan (:func:`norm_act_plan`), the dx pass's
+(:func:`bn_dx_plan`, B2's rules with two inputs) and B1/B3's
 (:func:`reduce_plan`) are each cached per shape, dtype, layout, alignment
 and SM count, so a call repeats no host arithmetic; the SM count is read
 once per device. B1 and B3 share the one-launch reduction of
@@ -51,7 +54,7 @@ BUILD_DIR = CSRC_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = {"channel_sums": "channel_sums.cu", "abn_norm_act": "abn_norm_act.cu",
-           "abn_bwd": "abn_bwd.cu"}
+           "abn_bwd": "abn_bwd.cu", "bn_dx": "bn_dx.cu"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of each ``<name>_launch``: every pointer, the packed plan and the
 # stream c_void_p.
@@ -59,6 +62,7 @@ _ARGTYPES = {
     "channel_sums": [_P] * 7 + [_I, _P],
     "abn_norm_act": [_P] * 5 + [_I, _I, _F, _P],
     "abn_bwd": [_P] * 9 + [_I, _I, _F, _P],
+    "bn_dx": [_P] * 8 + [_I, _P],
 }
 
 _ACTIVATIONS = {"none": 0, "leaky_relu": 1, "elu": 2}
@@ -223,6 +227,36 @@ class NormActPlan(_PackedPlan):
         return _cdiv(self.numel // self.vec, self.cols) if self.rows_layout else 0
 
 
+def _pass_plan(name: str, shape: Tuple[int, ...], dtype: torch.dtype, inner: int,
+               aligned: bool, sms: int, unroll: int, blocks_per_sm: int) -> NormActPlan:
+    """The launch plan of a per-channel pass (B2, or BatchNorm's dx pass):
+    :func:`norm_act_plan`'s rules with ``unroll`` loads in flight per input
+    and ``blocks_per_sm`` rows blocks per SM."""
+    shape = tuple(int(s) for s in shape)
+    if dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {dtype}")
+    if len(shape) < 2 or shape[1] <= 0 or inner <= 0 or sms <= 0:
+        raise ValueError(f"no {name} plan for shape {shape} with inner {inner}")
+    channels, numel = shape[1], math.prod(shape)
+    if numel <= 0 or numel % (channels * inner) != 0:
+        raise ValueError(f"no {name} plan for shape {shape} with inner {inner}")
+    vec = 16 // dtype.itemsize if aligned else 1
+    if inner == 1:
+        cols = math.lcm(channels, vec) // vec
+        col_tiles = _cdiv(cols, NORM_ACT_THREADS)
+        if col_tiles > MAX_GRID_Y:
+            raise ValueError(f"shape {shape}: {channels} channels are too many for one plan")
+        tx = _cdiv(cols, col_tiles)
+        ty = max(1, NORM_ACT_THREADS // tx)
+        periods = _cdiv(numel // vec, cols)
+        blocks = min(_cdiv(blocks_per_sm * sms, col_tiles), _cdiv(periods, unroll * ty))
+        return NormActPlan(True, vec, channels, inner, numel, cols, tx, ty, col_tiles, unroll,
+                           blocks)
+    blocks = min(PLANES_BLOCKS_PER_SM * sms, _cdiv(numel // vec, NORM_ACT_THREADS))
+    return NormActPlan(False, vec, channels, inner, numel, 0, NORM_ACT_THREADS, 1, 1, 1,
+                       blocks)
+
+
 @functools.lru_cache(maxsize=4096)
 def norm_act_plan(shape: Tuple[int, ...], dtype: torch.dtype, inner: int, aligned: bool,
                   sms: int) -> NormActPlan:
@@ -240,30 +274,8 @@ def norm_act_plan(shape: Tuple[int, ...], dtype: torch.dtype, inner: int, aligne
     fewer when the periods run out in one trip. Planes: blocks of
     NORM_ACT_THREADS over the vectors, up to PLANES_BLOCKS_PER_SM per SM.
     These constants were chosen by measurement on an H100 (PERF.md §6)."""
-    shape = tuple(int(s) for s in shape)
-    if dtype not in _DTYPES:
-        raise TypeError(f"abn_norm_act takes float32 or bfloat16, got {dtype}")
-    if len(shape) < 2 or shape[1] <= 0 or inner <= 0 or sms <= 0:
-        raise ValueError(f"no abn_norm_act plan for shape {shape} with inner {inner}")
-    channels, numel = shape[1], math.prod(shape)
-    if numel <= 0 or numel % (channels * inner) != 0:
-        raise ValueError(f"no abn_norm_act plan for shape {shape} with inner {inner}")
-    vec = 16 // dtype.itemsize if aligned else 1
-    if inner == 1:
-        cols = math.lcm(channels, vec) // vec
-        col_tiles = _cdiv(cols, NORM_ACT_THREADS)
-        if col_tiles > MAX_GRID_Y:
-            raise ValueError(f"shape {shape}: {channels} channels are too many for one plan")
-        tx = _cdiv(cols, col_tiles)
-        ty = max(1, NORM_ACT_THREADS // tx)
-        periods = _cdiv(numel // vec, cols)
-        blocks = min(_cdiv(NORM_ACT_BLOCKS_PER_SM * sms, col_tiles),
-                     _cdiv(periods, NORM_ACT_UNROLL * ty))
-        return NormActPlan(True, vec, channels, inner, numel, cols, tx, ty, col_tiles,
-                           NORM_ACT_UNROLL, blocks)
-    blocks = min(PLANES_BLOCKS_PER_SM * sms, _cdiv(numel // vec, NORM_ACT_THREADS))
-    return NormActPlan(False, vec, channels, inner, numel, 0, NORM_ACT_THREADS, 1, 1, 1,
-                       blocks)
+    return _pass_plan("abn_norm_act", shape, dtype, inner, aligned, sms, NORM_ACT_UNROLL,
+                      NORM_ACT_BLOCKS_PER_SM)
 
 
 def abn_norm_act_cuda(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
@@ -301,9 +313,61 @@ def abn_norm_act_cuda(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
 abn_norm_act_cuda.launches = 0
 
+# ---------------------------------------------------------------------------
+# BatchNorm's dx pass: the launch plan of csrc/bn_dx.cu
+# ---------------------------------------------------------------------------
 
-def _check_reduce_input(name: str, a: torch.Tensor, b: Optional[torch.Tensor]) -> int:
-    """Validate the operands of B1/B3; returns ``channel_inner(a)``."""
+BN_DX_UNROLL = 2          # loads of each input in flight per thread, rows path (kUnroll)
+BN_DX_BLOCKS_PER_SM = 3   # rows path: a persistent grid, kMinBlocks blocks an SM
+
+
+@functools.lru_cache(maxsize=4096)
+def bn_dx_plan(shape: Tuple[int, ...], dtype: torch.dtype, inner: int, aligned: bool,
+               sms: int) -> NormActPlan:
+    """The launch plan of one call of the dx pass: B2's plan
+    (:func:`norm_act_plan`, the same fields and rules) with BN_DX_UNROLL
+    loads of each of its two inputs in flight and BN_DX_BLOCKS_PER_SM rows
+    blocks per SM. ``aligned``: both inputs and the output start on a
+    16-byte boundary."""
+    return _pass_plan("bn_dx", shape, dtype, inner, aligned, sms, BN_DX_UNROLL,
+                      BN_DX_BLOCKS_PER_SM)
+
+
+def bn_dx_cuda(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor,
+               b2: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Training-mode BatchNorm's ``dx = g * w - (x - mean) * b2 - a`` per
+    channel (dim 1) with the dx kernel, in fp32, rounded once.
+
+    ``g`` and ``x``: fp32 or bf16 of one dtype, shape and layout on a CUDA
+    device, contiguous NCHW, channels_last or [M, C]. ``w``, ``mean``,
+    ``b2``, ``a``: fp32 [C] on the same device. ``dx`` keeps ``x``'s dtype
+    and memory format; one launch on the current stream, no
+    synchronisation."""
+    inner = _check_operands("bn_dx_cuda", x, g)
+    _check_channel_vectors(x, w=w, mean=mean, b2=b2, a=a)
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx
+    aligned = all(t.data_ptr() % 16 == 0 for t in (g, x, dx))
+    plan = bn_dx_plan(x.shape, x.dtype, inner, aligned, sm_count(x.device))
+    lib = _library("bn_dx")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.bn_dx_launch(g.data_ptr(), x.data_ptr(), w.data_ptr(), mean.data_ptr(),
+                              b2.data_ptr(), a.data_ptr(), dx.data_ptr(), plan.packed,
+                              _DTYPES[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"bn_dx kernel launch failed: cudaError {rc}")
+    bn_dx_cuda.launches += 1
+    return dx
+
+
+bn_dx_cuda.launches = 0
+
+
+def _check_operands(name: str, a: torch.Tensor, b: Optional[torch.Tensor]) -> int:
+    """Validate the operands of B1/B3 and of the dx pass; returns
+    ``channel_inner(a)``."""
     if a.device.type != "cuda":
         raise ValueError(f"{name} takes CUDA tensors, got {a.device}")
     if a.dtype not in _DTYPES:
@@ -516,7 +580,7 @@ def channel_sums_cuda(a: torch.Tensor, b: Optional[torch.Tensor] = None):
     CUDA device, contiguous NCHW, channels_last or [M, C]. Returns two fp32
     [C] tensors. One kernel launch on the current stream, no
     synchronisation."""
-    inner = _check_reduce_input("channel_sums_cuda", a, b)
+    inner = _check_operands("channel_sums_cuda", a, b)
     c = a.shape[1]
     if a.numel() == 0:
         return (torch.zeros(c, dtype=torch.float32, device=a.device),
@@ -538,7 +602,7 @@ def abn_bwd_sums_cuda(z: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
     dtype, shape and layout on a CUDA device, contiguous NCHW, channels_last
     or [M, C]. ``gamma``/``beta``: fp32 [C] on the same device. One kernel
     launch on the current stream, no synchronisation."""
-    inner = _check_reduce_input("abn_bwd_sums_cuda", z, g)
+    inner = _check_operands("abn_bwd_sums_cuda", z, g)
     if activation not in _ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
     c = z.shape[1]
@@ -556,4 +620,4 @@ abn_bwd_sums_cuda.launches = 0
 
 # Every CUDA wrapper of the package, by kernel name.
 WRAPPERS = {"channel_sums": channel_sums_cuda, "abn_norm_act": abn_norm_act_cuda,
-            "abn_bwd": abn_bwd_sums_cuda}
+            "abn_bwd": abn_bwd_sums_cuda, "bn_dx": bn_dx_cuda}

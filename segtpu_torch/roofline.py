@@ -21,8 +21,8 @@ the config trains requiring a gradient (``without_encoder`` for the
 finetune configs: the frozen encoder has neither a weight gradient nor a
 data gradient) and an input that does not. Convolutions (forward, data
 gradient, weight gradient) and matrix products count; normalisation,
-activations, losses and the optimizer do not, and neither do B1/B2/B3,
-which the counter does not see. The count is taken at batch 1 and scaled by
+activations, losses and the optimizer do not, and neither do B1/B2/B3 and
+the dx pass, which the counter does not see. The count is taken at batch 1 and scaled by
 the batch: a convolution's FLOPs are linear in it. segtpu took XLA's cost
 analysis of the compiled step instead, which grows with the s2d form's
 expanded kernels (138.2 -> 183.1 forward GFLOP per 512^2 zf_unet image) and
@@ -36,8 +36,8 @@ Peak: 989 TFLOP/s, NVIDIA's data-sheet dense bf16 rate of the H100 SXM at
 
 Bytes, ``gb_ops_per_step`` and ``hbm_ops_pct``: one step under a
 ``TorchDispatchMode`` that charges each aten op its tensor inputs read once
-and its outputs written once (views move nothing), and each B1/B2/B3 call
-its inputs and outputs from their shapes (:func:`segtpu_torch.ops.abn`'s
+and its outputs written once (views move nothing), and each B1/B2/B3 or
+dx-pass call its inputs and outputs from their shapes (:func:`segtpu_torch.ops.abn`'s
 dispatcher). This is the traffic of the ops as written, not a lower bound:
 nothing gates on it.
 """
@@ -164,18 +164,18 @@ def _nbytes(tree) -> int:
 
 
 def kernel_bytes(name: str, x: torch.Tensor, *args) -> int:
-    """Bytes that one B1/B2/B3 call reads and writes, from its shapes:
-    its tensor inputs once each, and its outputs (B1, B3: two fp32 [C]
-    sums; B2: a tensor like ``x``)."""
+    """Bytes that one B1/B2/B3 or dx-pass call reads and writes, from its
+    shapes: its tensor inputs once each, and its outputs (B1, B3: two fp32
+    [C] sums; B2 and the dx pass: a tensor like ``x``)."""
     inputs = x.nbytes + _nbytes(args)
-    if name == "abn_norm_act":
+    if name in ("abn_norm_act", "bn_dx"):
         return inputs + x.nbytes
     return inputs + 2 * 4 * x.shape[1 if x.dim() > 1 else 0]
 
 
 class OpBytes(TorchDispatchMode):
     """Bytes of the aten ops run under it, as the module docstring counts
-    them; :meth:`on_device` wraps the B1/B2/B3 dispatcher to charge each
+    them; :meth:`on_device` wraps the kernels' dispatcher to charge each
     call :func:`kernel_bytes` (the ops inside a plain version are not
     charged)."""
 
@@ -279,7 +279,7 @@ def analyze(config: Optional[str] = None, no_s2d: bool = False, steps: int = STE
                    aten_ops_per_step=moved["ops"], kernel_calls_per_step=moved["kernel_calls"],
                    hbm_ops_pct=None if peaks[1] is None else 100 * gb * 1e9 / dt / peaks[1],
                    bytes="the step's ops as written (aten inputs read once, outputs written "
-                         "once; B1/B2/B3 from their shapes): not a lower bound")
+                         "once; B1/B2/B3 and the dx pass from their shapes): not a lower bound")
     return row
 
 

@@ -119,7 +119,8 @@ def test_channel_sums_dispatch_takes_plain_path_on_cpu():
     got = abn.channel_sums(x)
     want = abn.channel_sums_plain(x)
     assert all(torch.equal(u, v) for u, v in zip(got, want))
-    assert kernels.launch_counts() == {"channel_sums": 0, "abn_norm_act": 0, "abn_bwd": 0}
+    assert kernels.launch_counts() == {"channel_sums": 0, "abn_norm_act": 0, "abn_bwd": 0,
+                                       "bn_dx": 0}
 
 
 @pytest.mark.parametrize("fn", ["channel_sums_cuda", "abn_bwd_sums_cuda"])

@@ -122,9 +122,9 @@ def test_s2d_and_normal_forms_report_the_same_model_flops():
 
 
 def test_the_count_ignores_the_kernels_and_remat():
-    """B1/B2/B3 run inside the counted step but add nothing (the count is
-    the analytic conv count); a remat model recomputes its forward, which a
-    plain count would add, and the twin turns remat off."""
+    """B1/B2/B3 and the dx pass run inside the counted step but add nothing
+    (the count is the analytic conv count); a remat model recomputes its
+    forward, which a plain count would add, and the twin turns remat off."""
     calls = Counter()
     dispatch = abn_ops._on_device
 
@@ -137,7 +137,7 @@ def test_the_count_ignores_the_kernels_and_remat():
         got = roofline.step_flops("linknet34", PATCH, 1)
     finally:
         abn_ops._on_device = dispatch
-    assert calls == {"channel_sums": 84, "abn_norm_act": 48, "abn_bwd_sums": 12}
+    assert calls == {"channel_sums": 84, "abn_norm_act": 48, "abn_bwd_sums": 12, "bn_dx": 36}
     assert got == analytic_step_flops(_twin("linknet34"), PATCH, 1)[0]
 
     remat = get_model("zf_unet", patch_size=PATCH, device="cpu").train()
@@ -158,7 +158,7 @@ def test_step_bytes_charge_each_kernel_call_from_its_shapes():
         2, PATCH, model_name="linknet34", loss_name="bce_jaccard", optimizer="adam",
         device="cpu")
     moved = roofline.step_bytes(step, x, y)
-    assert moved["kernel_calls"] == 84 + 48 + 12
+    assert moved["kernel_calls"] == 84 + 48 + 12 + 36
     assert moved["ops"] > 0 and moved["ops_bytes"] > moved["kernel_bytes"] > 0
     a = torch.zeros(2, 16, 8, 8, dtype=torch.bfloat16)
     assert roofline.kernel_bytes("channel_sums", a) == a.nbytes + 2 * 4 * 16
@@ -166,6 +166,8 @@ def test_step_bytes_charge_each_kernel_call_from_its_shapes():
     scale = torch.zeros(16)
     assert roofline.kernel_bytes("abn_norm_act", a, scale, scale, "none", 0.0) == \
         2 * a.nbytes + 2 * scale.nbytes
+    assert roofline.kernel_bytes("bn_dx", a, a, scale, scale, scale, scale) == \
+        3 * a.nbytes + 4 * scale.nbytes
 
 
 def test_roofline_cli_prints_a_row(capsys):

@@ -565,10 +565,10 @@ def test_submit_cli_s2d_exits_for_a_model_without_s2d(tmp_path):
 
 def test_s2d_path_runs_the_kernels_wrappers(monkeypatch):
     """On the s2d path every normalisation goes through the dispatchers
-    with the 4x channel count: a zf_unet (4 filters) step calls B1 44 and B2
-    22 times, each on its s2d or normal-space input."""
+    with the 4x channel count: a zf_unet (4 filters) step calls B1 44, B2
+    22 and the dx pass 22 times, each on its s2d or normal-space input."""
     calls = []
-    for name in ("channel_sums", "abn_norm_act"):
+    for name in ("channel_sums", "abn_norm_act", "bn_dx"):
         real = getattr(abn, name)
 
         def record(x, *args, _real=real, _name=name, **kwargs):
@@ -582,5 +582,8 @@ def test_s2d_path_runs_the_kernels_wrappers(monkeypatch):
     assert sum(n == "channel_sums" for n, _ in calls) == 44
     assert sum(n == "abn_norm_act" for n, _ in calls) == 22
     # conv_224 and up_conv_224: 2 BatchNorms each on 4 x 4 s2d channels
+    assert sum(n == "bn_dx" for n, _ in calls) == 22
     assert sum(s == (2, 16, 32, 32) for n, s in calls if n == "abn_norm_act") == 4
-    assert kernels.launch_counts() == {"channel_sums": 0, "abn_norm_act": 0, "abn_bwd": 0}
+    assert sum(s == (2, 16, 32, 32) for n, s in calls if n == "bn_dx") == 4
+    assert kernels.launch_counts() == {"channel_sums": 0, "abn_norm_act": 0, "abn_bwd": 0,
+                                       "bn_dx": 0}
