@@ -72,23 +72,29 @@ Phases, one JSON line each; any failure exits non-zero:
                psp_net's and duc's per-step calls timed beside
                F.batch_norm, reported and not gated
   kernel_bn_dx BNTrain's dx pass against bn_dx_plain (every element within
-               1 ulp in bf16 and fp32, and the share of equal bits; B2's
-               edge cases in every layout, then every BatchNorm shape of
-               tiramisu67's and LinkNet34's steps in bf16 and fp32
-               channels_last), its time cold in L2 at each of those shapes
-               beside its bound (6 bytes per bf16 element), the plain chain
-               and torch.batch_norm_backward_elemt (not gated), and each
-               step modelled (60 and 36 calls); fails where it is not
-               faster than the plain chain at a shape
-  kernel_s2d   B1 (both forms), B2 (none, leaky_relu) and B3 against their
-               plain versions at the normalisation inputs of the s2d forms'
-               steps (grouped statistics: zf_unet and UNetABN at batch 16,
-               tiramisu67 and tiramisu57 at batch 4 with their block-wise
-               4 x (48 + 16k) and 4 x (48 + 12k) channels, LinkNext's stem)
-               that the earlier phases did not check, bf16 channels_last;
-               each s2d form's largest shape timed beside the plain
-               versions, torch.var_mean, torch.batch_norm_backward_reduce
-               and F.batch_norm
+               1 ulp in bf16 and fp32, and the share of equal bits): B2's
+               edge cases in every layout in both; every BatchNorm shape of
+               the steps of the models above and of the zoo's steps in bf16
+               channels_last; every BatchNorm shape of the fp32 steps (the
+               nuclei A/B's, the zoo's parity steps) and of tiramisu67's
+               and LinkNet34's steps in fp32 channels_last. Its time cold
+               in L2 at each BatchNorm shape of tiramisu67's and
+               LinkNet34's steps beside its bound (6 bytes per bf16
+               element), the plain chain and
+               torch.batch_norm_backward_elemt (not gated), and each of
+               those steps modelled (60 and 36 calls); fails where it is
+               not faster than the plain chain at a timed shape
+  kernel_s2d   B1 (both forms), B2 (none, leaky_relu), B3 and the dx pass
+               against their plain versions at the normalisation inputs of
+               the s2d forms' steps (grouped statistics: zf_unet and
+               UNetABN at batch 16, tiramisu67 and tiramisu57 at batch 4
+               with their block-wise 4 x (48 + 16k) and 4 x (48 + 12k)
+               channels, LinkNext's stem) that the earlier phases did not
+               check, bf16 channels_last; each s2d form's largest shape
+               timed beside the plain versions, torch.var_mean,
+               torch.batch_norm_backward_reduce and F.batch_norm, and the
+               dx pass at its largest s2d BatchNorm input beside its plain
+               chain and torch.batch_norm_backward_elemt
   model_parity LinkNet34 saved and reloaded through the .pth snapshot format,
                one 2x3x512x512 fp32 eval forward on the card vs the CPU
   serve        tiled inference as the submit CLI runs it (patch 512, batch 64,
@@ -1367,10 +1373,13 @@ def _bn_dx_case(args):
     return worst, int((ulps == 0).sum()), ulps.numel()
 
 
-def phase_kernel_bn_dx(card: str, norm_shapes):
+def phase_kernel_bn_dx(card: str, norm_shapes, fp32_shapes, zoo_shapes):
     """BNTrain's dx pass against bn_dx_plain: B2's edge cases in every
-    layout, then every BatchNorm shape of BN_DX_MODELS' steps, in bf16 and
-    fp32 channels_last; then its time at each of those shapes, cold in L2,
+    layout in bf16 and fp32; every BatchNorm shape of every model's step
+    (``norm_shapes``) and of the zoo's (``zoo_shapes``) in bf16
+    channels_last; those of the fp32 steps (``fp32_shapes``) and of
+    BN_DX_MODELS' steps in fp32 channels_last. Then its time at each
+    BatchNorm shape of BN_DX_MODELS' steps, cold in L2,
     beside its bound (6 bytes per bf16 element), the plain chain and
     torch.batch_norm_backward_elemt (the library's dx of SyncBatchNorm, given
     the same BatchNorm; reported, not gated), and each model's step modelled
@@ -1387,10 +1396,14 @@ def phase_kernel_bn_dx(card: str, norm_shapes):
     edge = [(s, lay) for s in B2_EDGE_SHAPES
             for lay in (B2_EDGE_LAYOUTS if len(s) == 4 else ("nchw", "unaligned"))]
     step_shapes = sorted({s for m in BN_DX_MODELS for s in norm_shapes[m]["bn"]})
-    cases = edge + [(s, "channels_last") for s in step_shapes]
-    for dtype in (torch.float32, torch.bfloat16):
-        for shape, layout in cases:
-            check(shape, dtype, layout)
+    train_unique = _unique(norm_shapes, ("bn",))
+    zoo_unique = sorted(set(_unique(zoo_shapes, ("bn",))) - set(train_unique))
+    fp32_unique = sorted(set(_unique(fp32_shapes, ("bn",))) | set(step_shapes))
+    cases = ([(s, lay, dt) for dt in (torch.float32, torch.bfloat16) for s, lay in edge]
+             + [(s, "channels_last", torch.bfloat16) for s in train_unique + zoo_unique]
+             + [(s, "channels_last", torch.float32) for s in fp32_unique])
+    for shape, layout, dtype in cases:
+        check(shape, dtype, layout)
     torch.cuda.empty_cache()
 
     # the library's call against the plain version at the largest shape (not gated)
@@ -1429,7 +1442,9 @@ def phase_kernel_bn_dx(card: str, norm_shapes):
     for row in largest_by_model.values():
         row["bound_share"] = row["bound_ms"] / row["ms"]
     bw, _, rate_src = card_rates(card)
-    emit("kernel_bn_dx", cases=2 * len(cases), step_shapes=len(step_shapes),
+    emit("kernel_bn_dx", cases=len(cases), training_shapes=len(train_unique),
+         zoo_training_shapes=len(zoo_unique), fp32_shapes=len(fp32_unique),
+         timed_shapes=len(step_shapes),
          gate=f"every element within {BN_DX_ULPS} ulp of bn_dx_plain (bf16 and fp32)",
          max_ulps_bf16=stats[torch.bfloat16][0], max_ulps_fp32=stats[torch.float32][0],
          exact_share_bf16=stats[torch.bfloat16][1] / stats[torch.bfloat16][2],
@@ -2995,19 +3010,24 @@ def conv_gflop_per_image(name, attrs):
     return counter.get_total_flops() * (PATCH // 64) ** 2 / 1e9
 
 
-def phase_kernel_s2d(card: str, s2d_shapes, normal_shapes, checked):
+def phase_kernel_s2d(card: str, s2d_shapes, normal_shapes, checked, dx_checked):
     """B1 (both forms) and B2 (none and leaky_relu) against their plain
     versions at every normalisation input shape of the s2d forms' steps that
     the earlier kernel phases did not check (``checked``), B3 (leaky_relu)
-    at every InPlaceABN input of the s2d steps, bf16 channels_last; then the
-    largest shape of each s2d level (a call of the s2d form's step that its
-    normal form's step, ``normal_shapes``, does not make) timed beside the plain
-    versions and the library calls (warm medians of 20). Returns
-    ``{kernel: entry}`` for the kernel table."""
+    at every InPlaceABN input of the s2d steps, the dx pass at every
+    BatchNorm input of the s2d steps that kernel_bn_dx did not check
+    (``dx_checked``; its coefficients per s2d sub-channel, as BNTrain hands
+    them over), bf16 channels_last; then the largest shape of each s2d level
+    (a call of the s2d form's step that its normal form's step,
+    ``normal_shapes``, does not make) timed beside the plain versions and the
+    library calls (warm medians of 20), the dx pass at each s2d level's
+    largest BatchNorm input. Returns ``{kernel: entry}`` for the kernel
+    table."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 90)
     unique = [s for s in _unique(s2d_shapes, ("bn", "abn")) if s not in checked]
     abn_unique = _unique(s2d_shapes, ("abn",))
-    errs = {"channel_sums": 0.0, "abn_norm_act": 0.0, "abn_bwd": 0.0}
+    dx_unique = [s for s in _unique(s2d_shapes, ("bn",)) if s not in dx_checked]
+    errs = {"channel_sums": 0.0, "abn_norm_act": 0.0, "abn_bwd": 0.0, "bn_dx": 0}
     for shape in unique:
         for pair in (False, True):
             a = cuda_input(shape, torch.bfloat16, "channels_last", g)
@@ -3024,8 +3044,13 @@ def phase_kernel_s2d(card: str, s2d_shapes, normal_shapes, checked):
         z, grad, gamma, beta = _abn_output(shape, torch.bfloat16, "channels_last", "leaky_relu", g)
         errs["abn_bwd"] = max(errs["abn_bwd"], _b3_case(z, grad, gamma, beta, "leaky_relu")[0])
         del z, grad
-    if not unique or not abn_unique:
-        raise AssertionError(f"kernel_s2d: no s2d shape to check ({unique}, {abn_unique})")
+    for shape in dx_unique:
+        args = bn_dx_inputs(shape, torch.bfloat16, "channels_last", g)[0]
+        errs["bn_dx"] = max(errs["bn_dx"], _bn_dx_case(args)[0])
+        del args
+    if not unique or not abn_unique or not dx_unique:
+        raise AssertionError(f"kernel_s2d: no s2d shape to check ({unique}, {abn_unique}, "
+                             f"{dx_unique})")
 
     timed = {}
 
@@ -3073,12 +3098,29 @@ def phase_kernel_s2d(card: str, s2d_shapes, normal_shapes, checked):
         plain_ms=cuda_ms(lambda: abn_bwd_sums_plain(z, grad, gamma, beta, "leaky_relu", SLOPE)),
         library_ms=None))
     del z, grad
+
+    def dx_timing(shape):
+        args, lib_args = bn_dx_inputs(shape, torch.bfloat16, "channels_last", g)
+        n, c = args[1].numel(), shape[1]
+        row = dict(shape=list(shape), **timing_entry(
+            3 * n * 2 + 4 * 4 * c, 5 * n, card, ms=cuda_ms(lambda: kernels.bn_dx_cuda(*args)),
+            plain_ms=cuda_ms(lambda: abn_ops.bn_dx_plain(*args)),
+            library_ms=cuda_ms(lambda: torch.batch_norm_backward_elemt(*lib_args))))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        return row
+
+    dx_largest = {m: dx_timing(_largest(s2d_level(m, ("bn",)))) for m in s2d_shapes
+                  if s2d_level(m, ("bn",))}
     emit("kernel_s2d", card=card, new_shapes=[list(s) for s in unique],
-         new_abn_shapes=[list(s) for s in abn_unique], max_abs_err=errs,
+         new_abn_shapes=[list(s) for s in abn_unique],
+         new_bn_dx_shapes=[list(s) for s in dx_unique], max_abs_err=errs,
          tolerance={"channel_sums": f"per channel |err| <= {RTOL_SUM} * sum|term| + 1e-6",
                     "abn_norm_act": "rtol 8e-3 (one bf16 ulp)",
-                    "abn_bwd": f"per channel |err| <= {RTOL_SUM} * sum|term| + 1e-6"},
+                    "abn_bwd": f"per channel |err| <= {RTOL_SUM} * sum|term| + 1e-6",
+                    "bn_dx": f"every element within {BN_DX_ULPS} ulp of bn_dx_plain "
+                             "(max_abs_err: the largest ulps)"},
          largest_s2d_level_by_model=largest, abn_bwd_largest=b3,
+         bn_dx_largest_s2d_level_by_model=dx_largest,
          timing="device time, warm medians of 20; library: torch.var_mean (single), "
                 "torch.batch_norm_backward_reduce (pair), F.batch_norm over mean 0, var 1 "
                 "(B2's activation-none form)")
@@ -3090,7 +3132,9 @@ def phase_kernel_s2d(card: str, s2d_shapes, normal_shapes, checked):
             "abn_norm_act": dict(max_abs_err=errs["abn_norm_act"], new_shapes=len(unique),
                                  largest_by_model={m: dict(r["abn_norm_act"], shape=r["shape"])
                                                    for m, r in largest.items()}),
-            "abn_bwd": dict(max_abs_err=errs["abn_bwd"], shapes=len(abn_unique), largest=b3)}
+            "abn_bwd": dict(max_abs_err=errs["abn_bwd"], shapes=len(abn_unique), largest=b3),
+            "bn_dx": dict(max_ulps=errs["bn_dx"], new_shapes=len(dx_unique),
+                          largest_by_model=dx_largest)}
 
 
 def phase_s2d_parity():
@@ -3787,10 +3831,12 @@ def main(argv=None) -> int:
     b3, b3_err = phase_kernel_b3(card, norm_shapes, nuclei_shapes)
     b2, b2_err = phase_kernel_b2(card, norm_shapes, fp32_shapes, zoo_shapes)
     torch.cuda.empty_cache()
-    bn_dx, bn_dx_ulps = phase_kernel_bn_dx(card, norm_shapes)
+    bn_dx, bn_dx_ulps = phase_kernel_bn_dx(card, norm_shapes, fp32_shapes, zoo_shapes)
     torch.cuda.empty_cache()
     s2d_kernels = phase_kernel_s2d(card, s2d_shapes, dict(norm_shapes, **zoo_shapes),
                                    set(_unique(norm_shapes, ("bn", "abn")))
+                                   | set(_unique(zoo_shapes, ("bn",))),
+                                   set(_unique(norm_shapes, ("bn",)))
                                    | set(_unique(zoo_shapes, ("bn",))))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3902,6 +3948,7 @@ def main(argv=None) -> int:
                      library_check=bn_dx["library_check"],
                      largest_by_model=bn_dx["largest_by_model"],
                      per_step=_per_step_entry(bn_dx["per_step"]),
+                     s2d=s2d_kernels["bn_dx"],
                      launches_by_path=by_path["bn_dx"]),
     ]}), flush=True)
     print(smi, flush=True)
