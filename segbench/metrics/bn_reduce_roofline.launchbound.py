@@ -1,0 +1,6 @@
+"""``bn_reduce_roofline.train`` of the launch-bound training cells, which move
+``train_step_p95_ms.hostbound``."""
+
+from segbench.harness import metric_reader
+
+read = metric_reader("bn_reduce_roofline.train")

@@ -1,0 +1,6 @@
+"""``mfu_pct.train`` of the launch-bound training cells, which move
+``train_step_p95_ms.hostbound``."""
+
+from segbench.harness import metric_reader
+
+read = metric_reader("mfu_pct.train")

@@ -87,10 +87,12 @@ class Numerics:
         self.precision, self.mask_dtype = precision, mask_dtype
 
     def forward(self, model: nn.Module, x: torch.Tensor) -> torch.Tensor:
-        """``model(x)`` in this precision, as fp32 logits."""
+        """``model(x)`` in this precision, as fp32 logits (float64 for a
+        float64 model)."""
         with torch.autocast(x.device.type, dtype=torch.bfloat16,
                             enabled=self.precision == "fp8"):
-            return model(x).float()
+            out = model(x)
+        return out.to(torch.promote_types(out.dtype, torch.float32))
 
     def _q(self, t: torch.Tensor) -> torch.Tensor:
         return t if self.precision == "fp32" else fp8(t)

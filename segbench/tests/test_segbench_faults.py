@@ -12,7 +12,8 @@ import torch
 from segbench import calibrate, harness
 
 CPU = torch.device("cpu")
-TRAIN = ["tiramisu67.train-512-b4", "linknet34.train-512-b16"]
+TRAIN = ["tiramisu67.train-512-b4", "linknet34.train-512-b16", "zf_unet.train-512-b16",
+         "zf_unet.train-512-b16-s2d"]
 SERVE = ["linknet34.serve-5000-tta8", "linknet34.serve-5000-notta"]
 SEED = 2 ** 31 + 77
 

@@ -109,12 +109,27 @@ def test_metric_reader_found_by_name(metric):
 
 
 def test_cell_metrics_selection():
-    serve, train = "linknet34.serve-5000-tta8", "tiramisu67.train-512-b4"
+    serve = "linknet34.serve-5000-tta8"
     assert {m["name"] for m in harness.cell_metrics(BENCH, serve, False)} == \
         {"serve_s_per_image", "peak_mem_gib", "setup_s"}
     assert {m["name"] for m in harness.cell_metrics(BENCH, "linknet34.serve-5000-notta", True)} \
         == {"outside_pass_pct.notta", "device_idle_pct.notta"}
-    assert {m["name"] for m in harness.cell_metrics(BENCH, train, False)} == \
+    # the device-bound step reads the tight family, the host-paced steps theirs
+    assert {m["name"] for m in harness.cell_metrics(BENCH, "zf_unet.train-512-b16", False)} == \
         {"train_images_per_s", "train_step_p95_ms", "peak_mem_gib", "setup_s"}
-    assert {m["name"] for m in harness.cell_metrics(BENCH, train, True)} == \
+    assert {m["name"] for m in harness.cell_metrics(BENCH, "zf_unet.train-512-b16", True)} == \
         {"mfu_pct.train", "bn_reduce_roofline.train", "device_idle_pct.train"}
+    for cell in ("tiramisu67.train-512-b4", "zf_unet.train-512-b16-s2d"):
+        assert {m["name"] for m in harness.cell_metrics(BENCH, cell, False)} == \
+            {"train_images_per_s.hostbound", "train_step_p95_ms.hostbound", "peak_mem_gib",
+             "setup_s"}
+        assert {m["name"] for m in harness.cell_metrics(BENCH, cell, True)} == \
+            {"mfu_pct.hostbound", "bn_reduce_roofline.hostbound", "device_idle_pct.hostbound"}
+    # the launch-bound step's images/s swings with the host's pace beyond any
+    # bound, so it is read per layer, beside the p95 that it moves
+    launch = "linknet34.train-512-b16"
+    assert {m["name"] for m in harness.cell_metrics(BENCH, launch, False)} == \
+        {"train_step_p95_ms.hostbound", "peak_mem_gib", "setup_s"}
+    assert {m["name"] for m in harness.cell_metrics(BENCH, launch, True)} == \
+        {"train_images_per_s.launchbound", "mfu_pct.launchbound",
+         "bn_reduce_roofline.launchbound", "device_idle_pct.launchbound"}

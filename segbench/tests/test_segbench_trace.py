@@ -58,6 +58,26 @@ def test_training_readers():
     assert read("serve_s_per_image")(rec) is None and read("b2_roofline.serve")(rec) is None
 
 
+FAMILIES = {f"{plain.split('.')[0]}.{family}": plain
+            for family in ("hostbound", "launchbound")
+            for plain in ("train_images_per_s", "mfu_pct.train", "bn_reduce_roofline.train",
+                          "device_idle_pct.train")}
+FAMILIES["train_step_p95_ms.hostbound"] = "train_step_p95_ms"
+
+
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_family_readers_read_as_the_plain_ones(name):
+    # the readers of a family read the plain metric: they differ only in
+    # the bound or the layer it is held under
+    train = {"steps": 100, "images": 1600, "window_ms": 7000.0,
+             "step_ms": [60.0] * 90 + [90.0] * 10, "batch": 16}
+    tr = {"busy_s": 0.35, "window_s": 0.8, "device_events": 10, "steps": 10,
+          "kernel_s": {"B1": 0.014, "B2": 0.007, "B3": 0.003}}
+    rec = _record(train=train, trace=tr, peak_bytes=2 ** 32)
+    value = harness.metric_reader(name)(rec)
+    assert value is not None and value == harness.metric_reader(FAMILIES[name])(rec)
+
+
 def test_serving_readers():
     rec = {"config": harness.config("linknet34"), "traffic": harness.traffic("serve-5000-tta8"),
            "peaks": harness.peaks("NVIDIA H100 80GB HBM3"),

@@ -16,7 +16,10 @@ reference (``configs/<config>.json``'s ``reference``) follows the first
 steps from the same weights and batches in fp32.
 
 Parameters (``traffic/<mix>.json``): ``batch``, ``patch``, ``pool``,
-``warm_steps``, ``trace_steps``.
+``warm_steps``, ``trace_steps``, and optionally ``form``: ``"normal"`` (the
+default) or ``"s2d"``, the model's space-to-depth form (``model.s2d =
+True``, as the CLIs' ``--s2d`` sets it). The reference has no form: s2d is
+the same math, checked against the one normal-space reference.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from segbench.reference import numerics, train as ref_train
 
 
 def build_program(ctx):
-    """``(step, model, optimizer)`` of the port, with the seeded weights."""
+    """``(step, model, optimizer)`` of the port in the traffic's ``form``,
+    with the seeded weights."""
     from segtpu_torch.models import get_model
     from segtpu_torch.ops.losses import get_loss
     from segtpu_torch.ops.metrics import default_metrics
@@ -42,6 +46,13 @@ def build_program(ctx):
 
     recipe = ctx.config["train"]
     model = get_model(ctx.config["model"], patch_size=ctx.traffic["patch"], device=ctx.device)
+    form = ctx.traffic.get("form", "normal")
+    if form == "s2d":
+        if not hasattr(model, "s2d"):
+            raise ValueError(f"model {ctx.config['model']!r} has no s2d form")
+        model.s2d = True
+    elif form != "normal":
+        raise ValueError(f"unknown form {form!r}: 'normal' or 's2d'")
     model.load_state_dict(harness.seeded_state(model.state_dict(), ctx.seed, ctx.device))
     opt = get_optimizer(recipe["optimizer"], model.parameters(), recipe["lr"])
     step = make_train_step(model, opt, get_loss(recipe["loss"]), default_metrics(),
@@ -74,7 +85,8 @@ def warm_steps(ctx, step, model, opt, batches) -> dict:
     lr = ctx.config["train"]["lr"]
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
     seen = []
-    hook = model.register_forward_hook(lambda m, i, out: seen.append(out.detach().float()))
+    hook = model.register_forward_hook(
+        lambda m, i, out: seen.append(out.detach().to(torch.promote_types(out.dtype, torch.float32))))
     losses, grad = [], None
     for x, y in batches:
         losses.append(float(step(x, y, lr)["loss"]))
