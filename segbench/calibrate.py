@@ -8,7 +8,9 @@ the card, in one process:
   ``--controls`` seeds;
 * ``faults``: the program with a fault planted, on ``--faults`` seeds:
   training, half of the batch left out of the loss (the mean over the
-  rest) and a step that leaves the parameters unchanged; serving, half of
+  rest), a step that leaves the parameters unchanged, and for a
+  configuration that freezes its encoder a step built without the freeze
+  (``thawed``: the encoder trains); serving, half of
   each pass's views left out (their probabilities nought) and an answer
   altered where it is produced (a quarter of the mask inverted).
 
@@ -22,6 +24,7 @@ follow it.
 from __future__ import annotations
 
 import argparse
+import copy
 import functools
 import gc
 import json
@@ -72,6 +75,10 @@ def train_fault_program(kind, fault: str):
                 return build(ctx)
             finally:
                 losses.get_loss = get_loss
+        if fault == "thawed":
+            thawed = copy.copy(ctx)
+            thawed.config = dict(ctx.config, train=dict(ctx.config["train"], freeze_encoder=False))
+            return build(thawed)
         step, model, opt = build(ctx)
         if fault == "unchanged":
             opt.step = lambda *a, **k: None
@@ -176,8 +183,11 @@ def main(argv=None) -> int:
     spec = harness.workload(args.workload)
     kind_name = harness.traffic(spec["traffic"])["kind"]
     kind = harness.traffic_kind(kind_name)
-    fault_modes = (["half_batch", "unchanged"] if kind_name == "train_steps"
-                   else ["half_views", "altered"])
+    if kind_name == "train_steps":
+        frozen = ref_train.frozen_prefixes(harness.config(spec["config"]))
+        fault_modes = ["half_batch", "unchanged"] + (["thawed"] if frozen else [])
+    else:
+        fault_modes = ["half_views", "altered"]
     plan = ([("program", i) for i in range(args.seeds)]
             + [("control", i) for i in range(args.controls)]
             + [(f, i) for f in fault_modes for i in range(args.faults)])

@@ -12,6 +12,13 @@ Losses (reference lib/losses.py), global means over the batch:
 Optimizers with torch's defaults (reference torch_train.py:67-79): SGD
 without momentum; Adam with betas (0.9, 0.999), eps 1e-8 outside the
 square root, bias corrections.
+
+A recipe with ``freeze_encoder`` trains with the encoder frozen, as the
+reference's ``--freeze-encoder`` does: the parameters under the
+configuration's ``architecture.encoder_prefixes`` get a gradient of nought
+before each update (segtpu's mask rule), so Adam's state for them stays
+nought and they do not move, while the encoder's BatchNorms still update
+their running statistics in training mode.
 """
 
 from __future__ import annotations
@@ -71,23 +78,41 @@ class Optimizer:
             p.sub_(self.lr * m_hat / (v_hat.sqrt() + ADAM_EPS))
 
 
+def frozen_prefixes(config: dict) -> Tuple[str, ...]:
+    """The name prefixes of the parameters that a configuration's recipe
+    freezes: its ``architecture.encoder_prefixes`` under ``freeze_encoder``,
+    else none."""
+    if not config["train"].get("freeze_encoder"):
+        return ()
+    return tuple(config["architecture"]["encoder_prefixes"])
+
+
 def run_steps(model: nn.Module, batches: List[Tuple[torch.Tensor, torch.Tensor]], recipe: dict,
-              seed: int, nx: Numerics) -> dict:
+              seed: int, nx: Numerics, frozen: Tuple[str, ...] = ()) -> dict:
     """``len(batches)`` training steps of ``model`` from its present weights,
     step ``t`` on ``batches[t]`` with its dropout drawn from the step's seed
     (:func:`~segbench.reference.numerics.dropout_seed` of ``seed`` and
-    ``t``), its forward in ``nx``'s precision. Returns each step's loss,
-    the first step's logits, each parameter's first gradient (of
-    ``batch_size * loss``) and its change over all the steps, as norms by
-    name."""
+    ``t``), its forward in ``nx``'s precision; the parameters whose names
+    start with one of ``frozen`` are frozen (module docstring). Returns
+    each step's loss, the first step's logits, each trained parameter's
+    first gradient (of ``batch_size * loss``), each parameter's change over
+    all the steps and its norm before them, as norms by name, and the names
+    of the frozen parameters."""
     params = dict(model.named_parameters())
+    still = {n: p for n, p in params.items() if n.startswith(frozen)}
+    trained = {n: p for n, p in params.items() if n not in still}
     start = {n: p.detach().clone() for n, p in params.items()}
     opt = Optimizer(recipe["optimizer"], params, recipe["lr"])
+    # nothing upstream of a frozen parameter needs its gradient, which is nought
+    for p in still.values():
+        p.requires_grad_(False)
     model.train()
     losses, first, logits = [], None, None
     for t, (x, y) in enumerate(batches):
-        for p in params.values():
+        for p in trained.values():
             p.grad = None
+        for p in still.values():
+            p.grad = torch.zeros_like(p)
         default_generator(x.device).manual_seed(dropout_seed(seed, t))
         z = nx.forward(model, x)
         value = loss(recipe["loss"], z, y)
@@ -95,23 +120,25 @@ def run_steps(model: nn.Module, batches: List[Tuple[torch.Tensor, torch.Tensor]]
         losses.append(float(value.detach()))
         if first is None:
             logits = z.detach()
-            first = {n: float(p.grad.norm()) for n, p in params.items()}
+            first = {n: float(p.grad.norm()) for n, p in trained.items()}
         opt.step()
     change = {n: float((p.detach() - start[n]).norm()) for n, p in params.items()}
-    return {"losses": losses, "logits": logits, "grad": first, "change": change}
-
+    norm = {n: float(p.norm()) for n, p in start.items()}
+    return {"losses": losses, "logits": logits, "grad": first, "change": change, "norm": norm,
+            "frozen": sorted(still)}
 
 
 def leaf_gaps(program: Dict[str, float], reference: Dict[str, float], grad: Dict[str, float],
               floor: float = 1e-3) -> Tuple[float, str, float]:
     """``|program - reference|`` of each leaf against the larger of its
-    reference value and the median leaf's, over the leaves whose reference
-    gradient is at least ``floor`` of the median leaf's (a bias ahead of a
+    reference value and the median leaf's, over the leaves that have a
+    reference gradient (:func:`run_steps` gives the frozen none) of at least
+    ``floor`` of the median leaf's (a bias ahead of a
     batch statistic has a gradient of nought but for rounding, and moves
     under Adam by rounding alone). Returns the largest gap, its leaf, and
     the median gap."""
     med_grad = sorted(grad.values())[len(grad) // 2]
-    kept = [n for n in reference if grad[n] >= floor * med_grad]
+    kept = [n for n in grad if grad[n] >= floor * med_grad]
     med = sorted(reference[n] for n in kept)[len(kept) // 2]
     gaps = []
     for n in kept:

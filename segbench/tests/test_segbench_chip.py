@@ -44,4 +44,4 @@ def test_control_over_the_limit(cuda, cell):
         readings = calibrate.train_readings(kind, ctx, "control")
     else:
         readings = calibrate.serve_readings(kind, ctx, "control", kind.images(ctx))
-    assert any(readings[k] > ctx.limits[k] for k in readings), readings
+    assert any(readings[k] > limit for k, limit in ctx.limits.items()), readings

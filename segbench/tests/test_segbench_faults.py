@@ -12,8 +12,11 @@ import torch
 from segbench import calibrate, harness
 
 CPU = torch.device("cpu")
+ALBUNET = "albunet_finetune.train-512-b64"
 TRAIN = ["tiramisu67.train-512-b4", "linknet34.train-512-b16", "zf_unet.train-512-b16",
-         "zf_unet.train-512-b16-s2d"]
+         "zf_unet.train-512-b16-s2d", ALBUNET]
+# AlbuNet's centre pools to 1/64 of the input: 2x2 at 128^2
+PATCH = {ALBUNET: 128}
 SERVE = ["linknet34.serve-5000-tta8", "linknet34.serve-5000-notta"]
 SEED = 2 ** 31 + 77
 
@@ -30,7 +33,8 @@ def _overrides(cell: str) -> dict:
     conf = harness.config(harness.workload(cell)["config"])
     if "train" in cell:
         return {"config": {"train": dict(conf["train"], bf16=False)},
-                "traffic": {"batch": 2, "patch": 64, "pool": 4, "trace_steps": 1}}
+                "traffic": {"batch": 2, "patch": PATCH.get(cell, 64), "pool": 4,
+                            "trace_steps": 1}}
     return {"config": {"serve": dict(conf["serve"], bf16=False)},
             "traffic": {"image_size": 150, "patch": 64, "tile_batch": 16, "pool": 2,
                         "check_images": 2, "trace_images": 1, "tiles_per_call": 4}}
@@ -60,6 +64,19 @@ def test_training_fault_is_not_correct(cell, fault):
 
     result = _run(cell, hook)
     assert not result["correct"], result["checks"]
+
+
+def test_thawed_encoder_is_not_correct():
+    """The frozen recipe's step built without its freeze: the encoder moves,
+    and ``frozen_change`` is over its limit."""
+
+    def hook(kind):
+        kind.build_program = calibrate.train_fault_program(kind, "thawed")
+
+    result = _run(ALBUNET, hook)
+    assert not result["correct"]
+    frozen = result["checks"]["frozen_change"]
+    assert not harness.passed(frozen) and frozen["value"] > 1e-3, result["checks"]
 
 
 def _altered_stream(stream):

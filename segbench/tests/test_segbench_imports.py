@@ -44,7 +44,7 @@ bench = harness.benchmark()
 for m in bench["end_to_end"] + bench["per_layer"]:
     harness.metric_reader(m["name"])
 import segbench.reference.linknet34, segbench.reference.tiramisu, segbench.reference.tiled
-import segbench.reference.zf_unet
+import segbench.reference.zf_unet, segbench.reference.albunet
 import segbench.reference.train
 print(harness.forbidden_modules())
 """

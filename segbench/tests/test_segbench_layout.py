@@ -20,6 +20,7 @@ KEYS = {
     "per_layer": {"name", "unit", "better", "source", "layer", "moves"},
 }
 E2E = {m["name"]: m for m in BENCH["end_to_end"]}
+EXACT = {"frozen_change"}
 CELLS = [w["name"] for w in BENCH["workloads"]]
 
 
@@ -85,7 +86,9 @@ def test_cell_files_found_by_name(cell):
     traffic = harness.traffic(entry["traffic"])
     kind = harness.traffic_kind(traffic["kind"])
     assert callable(kind.run)
-    assert set(spec["limits"]) and all(v > 0 for v in spec["limits"].values())
+    # an exact comparison (nothing frozen moves at all) has the limit 0
+    limits = spec["limits"]
+    assert set(limits) and all(v > 0 or (k in EXACT and v == 0) for k, v in limits.items())
     e2e = harness.cell_metrics(BENCH, cell, trace=False)
     names = {m["name"] for m in e2e}
     assert "setup_s" in names and len(names) >= 2
@@ -115,10 +118,11 @@ def test_cell_metrics_selection():
     assert {m["name"] for m in harness.cell_metrics(BENCH, "linknet34.serve-5000-notta", True)} \
         == {"outside_pass_pct.notta", "device_idle_pct.notta"}
     # the device-bound step reads the tight family, the host-paced steps theirs
-    assert {m["name"] for m in harness.cell_metrics(BENCH, "zf_unet.train-512-b16", False)} == \
-        {"train_images_per_s", "train_step_p95_ms", "peak_mem_gib", "setup_s"}
-    assert {m["name"] for m in harness.cell_metrics(BENCH, "zf_unet.train-512-b16", True)} == \
-        {"mfu_pct.train", "bn_reduce_roofline.train", "device_idle_pct.train"}
+    for cell in ("zf_unet.train-512-b16", "albunet_finetune.train-512-b64"):
+        assert {m["name"] for m in harness.cell_metrics(BENCH, cell, False)} == \
+            {"train_images_per_s", "train_step_p95_ms", "peak_mem_gib", "setup_s"}
+        assert {m["name"] for m in harness.cell_metrics(BENCH, cell, True)} == \
+            {"mfu_pct.train", "bn_reduce_roofline.train", "device_idle_pct.train"}
     for cell in ("tiramisu67.train-512-b4", "zf_unet.train-512-b16-s2d"):
         assert {m["name"] for m in harness.cell_metrics(BENCH, cell, False)} == \
             {"train_images_per_s.hostbound", "train_step_p95_ms.hostbound", "peak_mem_gib",

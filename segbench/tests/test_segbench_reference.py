@@ -11,7 +11,10 @@ from segbench import counts, harness
 from segbench.reference import numerics, tiled
 
 CPU = torch.device("cpu")
-MODELS = {"linknet34": 64, "tiramisu67": 64, "zf_unet": 64}
+MODELS = {"linknet34": 64, "tiramisu67": 64, "zf_unet": 64, "albunet_finetune": 128}
+ALBUNET = "albunet_finetune.train-512-b64"
+TRAIN_CELLS = ["tiramisu67.train-512-b4", "linknet34.train-512-b16", "zf_unet.train-512-b16",
+               "zf_unet.train-512-b16-s2d", ALBUNET]
 ZF_CELLS = ("zf_unet.train-512-b16", "zf_unet.train-512-b16-s2d")
 # ZF_UNET's worst leaves in fp32 lie at its top level (the first conv's
 # weight, the top BatchNorms' weights and biases), whose first gradients sum
@@ -73,8 +76,7 @@ def test_eval_forward_agrees(name):
     assert float((a - b).abs().max() / scale) < 1e-4
 
 
-@pytest.mark.parametrize("cell", ["tiramisu67.train-512-b4", "linknet34.train-512-b16",
-                                  *ZF_CELLS])
+@pytest.mark.parametrize("cell", TRAIN_CELLS)
 def test_training_steps_agree(cell):
     """Three fp32 steps of the port's make_train_step and of the reference,
     from the same weights, batches and dropout masks. Under Adam a weight
@@ -95,12 +97,13 @@ def test_training_steps_agree(cell):
     adam = conf["train"]["optimizer"] == "adam"
     limits = {"loss_gap": 1e-3 if adam else 1e-5, "grad_gap": 2e-3,
               "change_gap": 5e-2 if adam else 2e-3}
+    if conf["train"].get("freeze_encoder"):
+        limits["frozen_change"] = 0.0
     checks = kind.compare(got, ref, ZF_LIMITS if cell in ZF_CELLS else limits)
     assert all(harness.passed(c) for c in checks.values()), checks
 
 
-@pytest.mark.parametrize("cell", ["tiramisu67.train-512-b4", "linknet34.train-512-b16",
-                                  *ZF_CELLS])
+@pytest.mark.parametrize("cell", TRAIN_CELLS)
 def test_training_steps_agree_in_float64(cell):
     """The same three steps with the program and the reference both in
     float64: with rounding all but gone, every leaf agrees, the worst one
@@ -130,11 +133,13 @@ def test_training_steps_agree_in_float64(cell):
     state = {k: v.to(f64) if v.is_floating_point() else v
              for k, v in harness.seeded_state(template, ctx.seed, CPU).items()}
     ref = ref_train.run_steps(numerics.build(cls, CPU, state, nx).to(f64), batches,
-                              conf["train"], ctx.seed, nx)
+                              conf["train"], ctx.seed, nx, ref_train.frozen_prefixes(conf))
     assert got["logits"].dtype == ref["logits"].dtype == f64
     adam = conf["train"]["optimizer"] == "adam"
     limits = {"loss_gap": 1e-8 if adam else 1e-12, "logit_gap": 1e-10,
               "grad_gap": 1e-8 if adam else 1e-10, "change_gap": 1e-7 if adam else 1e-10}
+    if conf["train"].get("freeze_encoder"):
+        limits["frozen_change"] = 0.0
     checks = kind.compare(got, ref, limits)
     assert all(harness.passed(c) for c in checks.values()), checks
 
@@ -255,3 +260,112 @@ def test_counts_match_the_ports_figures():
     assert round(link["serve_gflop_per_view"], 2) == 46.58
     # the bound of one 64-view serving pass of B2: 0.649 ms at 3.35 TB/s
     assert round(64 * link["b2_bytes_per_view"] / 3.35e12 * 1e3, 3) == 0.649
+
+
+def _albunet_context(seed: int) -> harness.Context:
+    conf = harness.config("albunet_finetune")
+    return harness.Context(ALBUNET, seed, 0.0, False, CPU, overrides={
+        "config": {"train": dict(conf["train"], bf16=False)},
+        "traffic": {"batch": 2, "patch": 128, "pool": 3}})
+
+
+def _bn_stats(model) -> dict:
+    return {n: b.clone() for n, b in model.named_buffers() if n.endswith("running_mean")}
+
+
+def test_frozen_leaves_stay_bit_unchanged_while_their_batchnorms_update():
+    """Three steps of the frozen recipe: in the program and in the reference
+    every encoder parameter keeps its bits, every decoder parameter moves,
+    and the encoder's BatchNorms update their running statistics."""
+    from segbench import shapes
+    from segbench.reference import train as ref_train
+
+    kind = harness.traffic_kind("train_steps")
+    ctx = _albunet_context(23)
+    batches = shapes.pool(3, 2, 128, ctx.seed, CPU)
+    step, model, opt = kind.build_program(ctx)
+    ref_model = numerics.build(harness.reference_class(ctx.config), CPU,
+                               {k: v.clone() for k, v in model.state_dict().items()},
+                               numerics.Numerics())
+    prefixes = ref_train.frozen_prefixes(ctx.config)
+    assert prefixes == ("encoder.",)
+    for m, run in ((model, lambda: kind.warm_steps(ctx, step, model, opt, batches)),
+                   (ref_model, lambda: ref_train.run_steps(ref_model, batches, ctx.config["train"],
+                                                           ctx.seed, numerics.Numerics(),
+                                                           prefixes))):
+        params = {n: p.detach().clone() for n, p in m.named_parameters()}
+        stats = _bn_stats(m)
+        run()
+        for n, p in m.named_parameters():
+            if n.startswith(prefixes):
+                assert torch.equal(p.detach(), params[n]), n
+            else:
+                assert not torch.equal(p.detach(), params[n]), n
+        assert len(stats) == 36 and all(n.startswith("encoder.") for n in stats)
+        after = _bn_stats(m)
+        assert all(not torch.equal(after[n], stats[n]) for n in stats)
+
+
+def test_encoder_prefixes_select_the_ports_frozen_names():
+    """The configuration's ``encoder_prefixes`` freeze exactly the parameters
+    that the port's ``without_encoder`` leaves out of training."""
+    from segbench.reference import train as ref_train
+    from segtpu_torch.models import get_model, without_encoder
+
+    conf = harness.config("albunet_finetune")
+    names = [n for n, _ in get_model(conf["model"], patch_size=128, device="cpu")
+             .named_parameters()]
+    trained = without_encoder(conf["model"], names)
+    frozen = {n for n in names if n.startswith(ref_train.frozen_prefixes(conf))}
+    assert frozen == set(names) - trained
+    assert (len(frozen), len(trained)) == (108, 28)
+
+
+@pytest.mark.parametrize("freeze", [True, False])
+def test_frozen_count_equals_a_count_of_the_port(freeze):
+    """``train_gflop_per_image`` under the freeze is a FlopCounterMode count
+    of the port's AlbuNet with its encoder's ``requires_grad_(False)``, and
+    without it the full backward's; at 512^2 they are 242.5 and 318.1."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from segtpu_torch.models import get_model
+
+    conf = harness.config("albunet_finetune")
+    if not freeze:
+        conf = dict(conf, train=dict(conf["train"], freeze_encoder=False))
+    port = get_model(conf["model"], patch_size=128, device="cpu")
+    port.encoder.requires_grad_(not freeze)
+    port.train()
+    with FlopCounterMode(display=False) as flops:
+        port(torch.zeros(1, 3, 128, 128)).sum().backward()
+    got = counts.count(conf, 128)
+    assert got["train_gflop_per_image"] == flops.get_total_flops() / 1e9
+    assert ("bn_reduce_bytes_per_image" in got) == freeze
+    if freeze:
+        # 36 encoder BatchNorms, none of which needs a backward: one read each
+        assert got["bn_reduce_bytes_per_image"] == got["bn_input_bytes_per_image"]
+    full = counts.count(conf, 512)["train_gflop_per_image"]
+    assert round(full, 1) == (242.5 if freeze else 318.1)
+
+
+def test_compared_keys():
+    """The numbers a training check can compare: the six keys of every
+    cell, and ``frozen_change`` only where the reference froze parameters,
+    which no configuration but the finetune's does."""
+    from segbench.reference import train as ref_train
+
+    assert {name: ref_train.frozen_prefixes(harness.config(name)) for name in MODELS} == \
+        {"linknet34": (), "tiramisu67": (), "zf_unet": (), "albunet_finetune": ("encoder.",)}
+    kind = harness.traffic_kind("train_steps")
+    leaves = {"a": 1.0, "b": 2.0, "c": 3.0}
+    program = {"losses": [1.0], "logits": torch.ones(2), "grad": leaves, "change": leaves,
+               "norm": leaves}
+    ref = {"losses": [1.0], "logits": torch.ones(2), "grad": leaves, "change": leaves,
+           "frozen": []}
+    keys = {"loss_gap", "logit_gap", "grad_gap", "grad_median_gap", "change_gap",
+            "change_median_gap"}
+    assert set(kind.gaps(program, ref)) == keys
+    frozen = dict(ref, grad={"a": 1.0, "b": 2.0}, change={"a": 1.0, "b": 2.0}, frozen=["c"])
+    values = kind.gaps(program, frozen)
+    assert set(values) == keys | {"frozen_change"} and values["frozen_change"] == 1.0
+    assert kind.gaps(dict(program, change=dict(leaves, c=0.0)), frozen)["frozen_change"] == 0.0

@@ -13,12 +13,17 @@ def test_reduce_busy_gaps_groups_and_labels():
              ("segbench.pass", 10 * MS, 35 * MS)]
     device = [("SumsOp<float>", 5 * MS, 15 * MS), ("abn_norm_act_kernel", 12 * MS, 20 * MS),
               ("elementwise_kernel", 40 * MS, 52 * MS), ("AbnBwdOp", 95 * MS, 120 * MS),
+              ("rows_pass<BnDxOp, __nv_bfloat16, 8>", 41 * MS, 45 * MS),
               ("before", -10 * MS, -5 * MS)]
     out = trace.reduce(device, spans)
     assert out["window_s"] == pytest.approx(0.1)
     # [5, 20] + [40, 52] + [95, 100] inside the window
     assert out["busy_s"] == pytest.approx(0.032)
-    assert out["kernel_s"] == pytest.approx({"B1": 0.010, "B2": 0.008, "B3": 0.005})
+    assert out["kernel_s"] == pytest.approx({"B1": 0.010, "B2": 0.008, "B3": 0.005,
+                                             "dx": 0.004})
+    # the BatchNorm dx pass has a group of its own, not "other"
+    assert out["groups_s"]["BatchNorm dx pass"] == pytest.approx(0.004)
+    assert "other" not in out["groups_s"]
     gaps = out["breakdown"]["idle_gaps"]
     # [52, 95] opens in segbench.step and mostly lies after it: its midpoint rules
     assert gaps[0] == ["outside any span", pytest.approx(0.043)]
@@ -56,6 +61,24 @@ def test_training_readers():
     nbytes = 3 * 1409859584 * 4 * 5
     assert read("bn_reduce_roofline.train")(rec) == pytest.approx(100 * nbytes / 3.35e12 / 0.04)
     assert read("serve_s_per_image")(rec) is None and read("b2_roofline.serve")(rec) is None
+
+
+def test_bn_reduce_roofline_counts_the_reads_the_step_needs():
+    """A configuration that freezes its encoder counts one read of each
+    BatchNorm input whose backward is not needed (its
+    ``bn_reduce_bytes_per_image``); the others three reads of every input."""
+    tr = {"busy_s": 0.5, "window_s": 0.8, "device_events": 10, "steps": 10,
+          "kernel_s": {"B1": 0.02, "B2": 0.01, "B3": 0.0}}
+    train = {"steps": 100, "images": 6400, "window_ms": 10000.0, "step_ms": [100.0] * 100,
+             "batch": 64}
+    read = harness.metric_reader("bn_reduce_roofline.train")
+    frozen = _record(config=harness.config("albunet_finetune"),
+                     traffic=harness.traffic("train-512-b64"), train=train, trace=tr)
+    assert read(frozen) == pytest.approx(100 * 39059456 * 64 * 10 / 3.35e12 / 0.02)
+    conf = harness.config("albunet_finetune")
+    counts = {k: v for k, v in conf["counts"].items() if k != "bn_reduce_bytes_per_image"}
+    full = dict(frozen, config=dict(conf, counts=counts))
+    assert read(full) == pytest.approx(3 * read(frozen))
 
 
 FAMILIES = {f"{plain.split('.')[0]}.{family}": plain

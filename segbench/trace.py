@@ -1,7 +1,8 @@
 """The profiled stretch of a ``--trace 1`` run: ``torch.profiler`` over a few
 steps or images, kept in memory, reduced to device time by kernel group, the
 busy union, the idle gaps labelled with the benchmark's span open at the
-time, and the device time of the port's kernels B1, B2 and B3.
+time, and the device time of the port's kernels B1, B2, B3 and the
+BatchNorm ``dx`` pass.
 
 The groups and the interval union follow ``segtpu_torch``'s profile_train
 and profile_serve, copied here so that the program cannot change the
@@ -18,13 +19,14 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 STRETCH = "segbench.stretch"
 SPAN_PREFIX = "segbench."
-# name fragments of the port's three hand-written kernels
-KERNELS = {"B1": "SumsOp", "B2": "abn_norm_act", "B3": "AbnBwdOp"}
+# name fragments of the port's hand-written kernels
+KERNELS = {"B1": "SumsOp", "B2": "abn_norm_act", "B3": "AbnBwdOp", "dx": "BnDxOp"}
 # kernel-name fragment -> group, first match wins
 GROUPS = (
     ("SumsOp", "B1 channel sums"),
     ("AbnBwdOp", "B3 ABN backward sums"),
     ("abn_norm_act", "B2 affine+activation"),
+    ("BnDxOp", "BatchNorm dx pass"),
     ("col2im", "tile merge (fold)"),
     ("wgrad", "convolution weight gradient"),
     ("dgrad", "convolution data gradient / transposed conv"),
@@ -88,7 +90,7 @@ def reduce(device: List[Tuple[str, int, int]], spans: List[Tuple[str, int, int]]
     """The stretch's numbers from its device intervals and its spans (one of
     which is :data:`STRETCH`, the window): seconds busy (the union of device
     intervals inside the window) and of the window, device seconds by group
-    and by kernel B1/B2/B3, and the ``breakdown`` of the result line."""
+    and by kernel (:data:`KERNELS`), and the ``breakdown`` of the result line."""
     window = next(((a, b) for n, a, b in spans if n == STRETCH), None)
     if window is None:
         raise ValueError("the trace holds no stretch span")

@@ -15,6 +15,13 @@ Once the window has closed and the program's state is freed, the plain
 reference (``configs/<config>.json``'s ``reference``) follows the first
 steps from the same weights and batches in fp32.
 
+A configuration whose recipe sets ``freeze_encoder`` trains with its
+encoder frozen: the program's step gets the port's own mask
+(``models.without_encoder``, the path of the bench's and the train CLI's
+``--freeze-encoder``), the reference freezes the parameters under the
+configuration's ``architecture.encoder_prefixes``, and the check adds
+``frozen_change``.
+
 Parameters (``traffic/<mix>.json``): ``batch``, ``patch``, ``pool``,
 ``warm_steps``, ``trace_steps``, and optionally ``form``: ``"normal"`` (the
 default) or ``"s2d"``, the model's space-to-depth form (``model.s2d =
@@ -37,8 +44,8 @@ from segbench.reference import numerics, train as ref_train
 
 def build_program(ctx):
     """``(step, model, optimizer)`` of the port in the traffic's ``form``,
-    with the seeded weights."""
-    from segtpu_torch.models import get_model
+    with the seeded weights, its encoder frozen where the recipe says so."""
+    from segtpu_torch.models import get_model, without_encoder
     from segtpu_torch.ops.losses import get_loss
     from segtpu_torch.ops.metrics import default_metrics
     from segtpu_torch.train.optim import get_optimizer
@@ -55,8 +62,10 @@ def build_program(ctx):
         raise ValueError(f"unknown form {form!r}: 'normal' or 's2d'")
     model.load_state_dict(harness.seeded_state(model.state_dict(), ctx.seed, ctx.device))
     opt = get_optimizer(recipe["optimizer"], model.parameters(), recipe["lr"])
+    trainable = (without_encoder(ctx.config["model"], (n for n, _ in model.named_parameters()))
+                 if recipe.get("freeze_encoder") else None)
     step = make_train_step(model, opt, get_loss(recipe["loss"]), default_metrics(),
-                           bf16=recipe["bf16"], seed=ctx.seed)
+                           bf16=recipe["bf16"], seed=ctx.seed, trainable_mask=trainable)
     return step, model, opt
 
 
@@ -81,7 +90,7 @@ def first_gradient(opt, model) -> dict:
 def warm_steps(ctx, step, model, opt, batches) -> dict:
     """The first steps: their losses, the logits of the first step's own
     forward (a hook on the model, removed after it), the first gradient's
-    norms and the change's norms."""
+    norms, the change's norms and the parameters' norms before the steps."""
     lr = ctx.config["train"]["lr"]
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
     seen = []
@@ -94,7 +103,8 @@ def warm_steps(ctx, step, model, opt, batches) -> dict:
             hook.remove()
             grad = {n: float(g.norm()) for n, g in first_gradient(opt, model).items()}
     change = {n: float((p.detach() - start[n]).norm()) for n, p in model.named_parameters()}
-    return {"losses": losses, "logits": seen[0], "grad": grad, "change": change}
+    norm = {n: float(p.norm()) for n, p in start.items()}
+    return {"losses": losses, "logits": seen[0], "grad": grad, "change": change, "norm": norm}
 
 
 def reference(ctx, batches, precision: str = "fp32") -> dict:
@@ -108,14 +118,18 @@ def reference(ctx, batches, precision: str = "fp32") -> dict:
     state = harness.seeded_state(template, ctx.seed, ctx.device)
     model = numerics.build(cls, ctx.device, state, nx)
     with numerics.exact():
-        return ref_train.run_steps(model, batches, ctx.config["train"], ctx.seed, nx)
+        return ref_train.run_steps(model, batches, ctx.config["train"], ctx.seed, nx,
+                                   ref_train.frozen_prefixes(ctx.config))
 
 
 def gaps(program: dict, ref: dict) -> dict:
     """Every number the check can compare: the worst step's relative loss
     gap; the first step's logits against the reference's (the norm of their
-    difference over the reference's norm); the first gradient's and the change's gaps of norms by the worst
-    leaf and by the median leaf (``reference.train.leaf_gaps``)."""
+    difference over the reference's norm); the first gradient's and the
+    change's gaps of norms by the worst leaf and by the median leaf of those
+    that train (``reference.train.leaf_gaps``); and where the reference froze
+    parameters, ``frozen_change``: the largest ``|change| / |parameter|``
+    of the program's over them, which is nought where nothing moved."""
     out = {"loss_gap": max(abs(p - r) / abs(r) if math.isfinite(p) else math.inf
                            for p, r in zip(program["losses"], ref["losses"]))}
     logit_gap = float((program["logits"] - ref["logits"]).norm() / ref["logits"].norm())
@@ -123,6 +137,10 @@ def gaps(program: dict, ref: dict) -> dict:
     for key in ("grad", "change"):
         worst, _, median = ref_train.leaf_gaps(program[key], ref[key], ref["grad"])
         out[f"{key}_gap"], out[f"{key}_median_gap"] = worst, median
+    if ref.get("frozen"):
+        moved = [program["change"][n] / program["norm"][n] if program["change"][n] else 0.0
+                 for n in ref["frozen"]]
+        out["frozen_change"] = max(m if math.isfinite(m) else math.inf for m in moved)
     return out
 
 
